@@ -15,12 +15,27 @@ non-zero. Phases:
               mined block.
 6. gpu=cpu  — lossy phold-256 and gossip-1000 on cuda and on cpu: equal
               stats and equal Hosts fields.
+7. cbrt     — the congestion control's float32 cbrt over 2^24 inputs
+              spread over every binade from 2^-20 to 2^20, plus 0 and
+              the special values: cuda bits == cpu bits.
+8. socks10k — 10,000 hosts (1,000 bulkservers, 1,000 socksproxies,
+              8,000 socksclients fetching 48 KiB through one relay) on
+              the ER-300 stand-in topology, runahead 10 ms, through
+              Simulation: clients complete fetches, no host's socket
+              table overflows; launches per pass from a profiled span
+              of windows.
+9. tcp gpu=cpu — lossy bulk and multihop lossy SOCKS on cuda and on
+              cpu: equal stats and equal Hosts fields.
+10. cli-tcp — the same bulk and SOCKS scenarios as XML through
+              ``python -m shadow_tpu_torch --runahead 10ms`` on the card.
 
 ``python3 chip_smoke.py --profile`` instead measures where the wall
-goes in phold-4096 and gossip-100k: a per-phase wall split (drain,
-exchange, advance; synchronized at each phase end) and a
-``torch.profiler`` run (kernel launches, device kernel time, the
-device's busy share, the top kernels).
+goes in phold-4096, gossip-100k and a span of socks10k windows: a
+per-phase wall split (drain, exchange, advance; synchronized at each
+phase end) and a ``torch.profiler`` run (kernel launches, device
+kernel time, the device's busy share, the top kernels); for socks10k
+with the TCP pass-flag split on and off. ``--phases a,b`` runs only
+the named phases of the default run (or of ``--profile``).
 
 The JAX package has no Pallas kernel, so this slice ports no kernel:
 the port's device work is plain PyTorch, and the ``kernels`` line is an
@@ -161,6 +176,177 @@ def profile_cell(name, mk, cfg):
         "top_kernels_ms": {k[:60]: round(v / 1e3, 3) for k, v in top}}),
         flush=True)
 
+# socks10k stop time (sim-s; clients start at 2 s): the full 10 sim-s
+# took 458.6 s of drain on the card, so the script runs the 5 sim-s floor
+SOCKS_STOP_S = 5
+
+
+def poi_topology(loss=0.0, bw_down=20480, bw_up=10240, latency_ms=20.0):
+    """One vertex with a lossy self-loop (tests/test_tcp.py's shape)."""
+    return f"""
+<graphml xmlns="http://graphml.graphdrawing.org/xmlns">
+  <key attr.name="latency" attr.type="double" for="edge" id="d7"/>
+  <key attr.name="packetloss" attr.type="double" for="edge" id="d9"/>
+  <key attr.name="packetloss" attr.type="double" for="node" id="d0"/>
+  <key attr.name="bandwidthup" attr.type="int" for="node" id="d4"/>
+  <key attr.name="bandwidthdown" attr.type="int" for="node" id="d3"/>
+  <graph edgedefault="undirected">
+    <node id="poi"><data key="d0">0.0</data>
+      <data key="d3">{bw_down}</data><data key="d4">{bw_up}</data></node>
+    <edge source="poi" target="poi"><data key="d7">{latency_ms}</data>
+      <data key="d9">{loss}</data></edge>
+  </graph>
+</graphml>
+"""
+
+
+def bulk_scenario(loss, size, count, stop=60):
+    """tests/test_differential.py:_bulk_scen: one bulkserver, one bulk
+    client."""
+    from shadow_tpu_torch.core.config import HostSpec, ProcessSpec, Scenario
+    return Scenario(
+        stop_time=stop * 10**9, topology_graphml=poi_topology(loss=loss),
+        hosts=[
+            HostSpec(id="server", processes=[
+                ProcessSpec(plugin="bulkserver", start_time=10**9,
+                            arguments="port=80")]),
+            HostSpec(id="client", processes=[
+                ProcessSpec(plugin="bulk", start_time=2 * 10**9,
+                            arguments=f"peer=server port=80 size={size} "
+                                      f"count={count} pause=1s")])])
+
+
+def socks_scenario(loss, hops, stop, clients=3):
+    """tests/test_differential.py:_socks_scen: 2 servers, 3 relays and
+    `clients` socks clients."""
+    from shadow_tpu_torch.core.config import HostSpec, ProcessSpec, Scenario
+    return Scenario(
+        stop_time=stop * 10**9, topology_graphml=poi_topology(loss=loss),
+        hosts=[
+            HostSpec(id="server", quantity=2, processes=[
+                ProcessSpec(plugin="bulkserver", start_time=10**9,
+                            arguments="port=80")]),
+            HostSpec(id="relay", quantity=3, processes=[
+                ProcessSpec(plugin="socksproxy", start_time=10**9,
+                            arguments="port=9050 server-port=80 "
+                                      "relay-lo=2 relay-hi=5")]),
+            HostSpec(id="client", quantity=clients, processes=[
+                ProcessSpec(plugin="socksclient", start_time=2 * 10**9,
+                            arguments=f"proxy-lo=2 proxy-hi=5 "
+                                      f"proxy-port=9050 server-lo=0 "
+                                      f"server-hi=2 size=30000 count=2 "
+                                      f"pause=1s hops={hops}")])])
+
+
+def cbrt_inputs():
+    """2^24 float32 inputs spread evenly over the 40 binades from 2^-20
+    to 2^20, then 0, -0, 1, the binade edges, inf, -inf and NaN."""
+    n = 1 << 24
+    per = n // 40
+    k = torch.arange(40 * per, dtype=torch.int64)
+    frac = (k % per).to(torch.float64) / per
+    x = torch.ldexp(1.0 + frac, (k // per - 20).to(torch.float64))
+    edges = [0.0, -0.0, 1.0, 2.0**-20, 2.0**20, float("inf"),
+             float("-inf"), float("nan")]
+    return torch.cat([x.to(torch.float32),
+                      torch.tensor(edges, dtype=torch.float32)])
+
+
+def launches_in_span(make_sim, first_window, passes):
+    """Kernel launches, device time and wall over `passes` drain passes
+    from the start of window `first_window` of a run (torch.profiler,
+    CUDA activity; the rest of the run goes unprofiled). Few passes:
+    the profiler's post-processing costs minutes per 10^6 events."""
+    from torch.profiler import ProfilerActivity, profile
+    from shadow_tpu_torch.engine import window as W
+
+    sim = make_sim()
+    state = {"w": 0, "n": 0, "prof": None, "wall": 0.0, "open": True}
+    inner = W.step_all_hosts
+
+    def step(*a, **kw):
+        armed = state["w"] == first_window - 1 and state["open"]
+        if armed and state["prof"] is None:
+            state["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            state["prof"].start()
+        if armed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        ran = inner(*a, **kw)
+        if armed:
+            torch.cuda.synchronize()
+            state["wall"] += time.perf_counter() - t0
+            state["n"] += ran
+            if state["n"] == passes or not ran:
+                state["prof"].stop()
+                state["open"] = False
+        return ran
+
+    def clock(label):
+        if label == "advance":
+            state["w"] += 1
+
+    W.step_all_hosts = step
+    try:
+        sim.run(clock=clock)
+    finally:
+        W.step_all_hosts = inner
+    prof = state["prof"]
+    if prof is None or state["open"] or not state["n"]:
+        fail(f"profiled span did not run (windows run: {state['w']})")
+    launches, kern_us = 0, 0.0
+    raw = getattr(prof.profiler, "kineto_results", None)
+    for e in (raw.events() if raw is not None else ()):
+        if e.name().startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            launches += 1
+        elif str(e.device_type()).endswith("CUDA"):
+            kern_us += e.duration_ns() / 1e3
+    if raw is None:
+        for e in prof.key_averages():
+            if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+                launches += e.count
+            dev = getattr(e, "self_device_time_total", 0.0)
+            if dev and str(getattr(e, "device_type", "")).endswith("CUDA"):
+                kern_us += dev
+    n = state["n"]
+    return {"window": first_window, "passes": n, "launches": launches,
+            "launches_per_pass": round(launches / n, 1),
+            "device_kernel_ms": round(kern_us / 1e3, 3),
+            "drain_wall_ms": round(state["wall"] * 1e3, 3),
+            "device_busy_share": round(kern_us / 1e6 / state["wall"], 4)}
+
+
+def socks10k_sim(stop_s=None):
+    """socks10k on the card, stopping at `stop_s` sim-s (default
+    SOCKS_STOP_S)."""
+    from shadow_tpu_torch.baseline_configs import socks10k
+    stop_s = SOCKS_STOP_S if stop_s is None else stop_s
+    sim = socks10k(n=10_000, stop=-(-stop_s // 1), device="cuda",
+                   runahead_ms=10)
+    sim.sh.stop_time.fill_(int(stop_s * 10**9))
+    return sim
+
+
+
+def profile_run(only):
+    """--profile: wall split and profiler runs of phold-4096 and
+    gossip-100k, and launches per pass over a span of socks10k windows
+    with the TCP pass-flag split off and on."""
+    if only is None or "phold-4096" in only:
+        profile_cell("phold-4096", lambda: phold_scenario(4096, 5),
+                     phold_cfg(4096))
+    if only is None or "gossip-100k" in only:
+        profile_cell("gossip-100k", lambda: gossip_scenario(100_000),
+                     gossip_cfg(100_000))
+    if only is None or "socks10k" in only:
+        from shadow_tpu_torch.engine import window as W
+        for split in (False, True, False, True):
+            W.SPLIT_TCP = split
+            span = launches_in_span(lambda: socks10k_sim(2.3), 20, 20)
+            print(f"profile socks10k split_tcp={split}: "
+                  + json.dumps(span), flush=True)
+        W.SPLIT_TCP = True
+
 
 def main():
     if not torch.cuda.is_available():
@@ -183,14 +369,49 @@ def main():
     print("kernels: [] (the JAX package has no Pallas kernel; this "
           "slice's device work is plain PyTorch)", flush=True)
 
-    if "--profile" in sys.argv[1:]:
-        profile_cell("phold-4096", lambda: phold_scenario(4096, 5),
-                     phold_cfg(4096))
-        profile_cell("gossip-100k", lambda: gossip_scenario(100_000),
-                     gossip_cfg(100_000))
+    args = sys.argv[1:]
+    only = None
+    if "--phases" in args:
+        only = set(args[args.index("--phases") + 1].split(","))
+    if "--profile" in args:
+        profile_run(only)
         return 0
 
+    def want(name):
+        return only is None or name in only
+
     # 2. log1p_f32: the card gives the CPU's bits
+    if want("log1p"):
+        log1p_phase(R)
+
+    # 3.-9.
+    from shadow_tpu_torch.__main__ import main as cli
+    if want("ping"):
+        ping_phase(cli)
+    if want("phold-4096"):
+        phold_phase()
+    if want("gossip-100k"):
+        gossip_phase()
+    if want("gpu=cpu"):
+        udp_gpu_cpu_phase(canonicalize_state)
+    if want("cbrt"):
+        cbrt_phase()
+    if want("socks10k"):
+        socks10k_phase(defs)
+    if want("tcp-gpu=cpu"):
+        tcp_gpu_cpu_phase(canonicalize_state)
+    if want("cli-tcp"):
+        cli_tcp_phase(cli)
+
+    print(f"total wall {time.perf_counter() - t_all:.1f}s")
+    print(json.dumps({"kernels": []}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def log1p_phase(R):
     t0 = time.perf_counter()
     u = (torch.arange(1 << 24, dtype=torch.int64).to(torch.float32)
          * (1.0 / (1 << 24)))
@@ -203,8 +424,9 @@ def main():
         fail(f"log1p_f32 cuda != cpu on {diff} of 2^24 inputs")
     phase("log1p", time.perf_counter() - t0, inputs=1 << 24, mismatches=0)
 
-    # 3. ping through the CLI entry point
-    from shadow_tpu_torch.__main__ import main as cli
+
+def ping_phase(cli):
+    """3. ping through the CLI entry point: mean RTT exactly 50 ms."""
     t0 = time.perf_counter()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -217,7 +439,10 @@ def main():
     phase("ping", time.perf_counter() - t0, events=s["events"],
           mean_rtt_us=s["mean_rtt_us"])
 
-    # 4. phold-4096, bench.py's shape, 5 sim-s
+
+def phold_phase():
+    """4. phold-4096, bench.py's shape, 5 sim-s."""
+    from shadow_tpu_torch.engine import defs
     t0 = time.perf_counter()
     _, rep = run(phold_scenario(4096, 5), phold_cfg(4096), "cuda")
     s = rep.summary()
@@ -229,7 +454,10 @@ def main():
     phase("phold-4096", time.perf_counter() - t0, **rates(rep),
           pkts_sent=s["pkts_sent"], pkts_recv=s["pkts_recv"])
 
-    # 5. gossip-100k as written, full 30 sim-s
+
+def gossip_phase():
+    """5. gossip-100k as written, full 30 sim-s."""
+    from shadow_tpu_torch.engine import defs
     t0 = time.perf_counter()
     gsim, rep = run(gossip_scenario(100_000), gossip_cfg(100_000), "cuda")
     s = rep.summary()
@@ -242,7 +470,25 @@ def main():
           blocks=mined, full_share=round(share, 6),
           mean_prop_delay_us=round(s["mean_rtt_us"], 1))
 
-    # 6. the card and the CPU agree bit for bit
+
+def _same_on_both(name, grun, crun, canonicalize_state):
+    """Fail unless two finished runs (cuda, cpu) agree on stats and on
+    every canonicalized Hosts field -> the raw-differing field names."""
+    (g, grep), (c, crep) = grun, crun
+    if not (grep.stats == crep.stats).all():
+        fail(f"{name}: stats differ between cuda and cpu")
+    ga, ca = g.final_hosts.numpy(), c.final_hosts.numpy()
+    raw = [f for f in ga if not (ga[f] == ca[f]).all()]
+    ga, ca = canonicalize_state(ga), canonicalize_state(ca)
+    bad = [f for f in ga if ga[f].dtype != ca[f].dtype
+           or not (ga[f] == ca[f]).all()]
+    if bad:
+        fail(f"{name}: Hosts fields differ between cuda and cpu: {bad}")
+    return raw
+
+
+def udp_gpu_cpu_phase(canonicalize_state):
+    """6. the card and the CPU agree bit for bit."""
     t0 = time.perf_counter()
     for name, mk, cfg in (
             ("phold-256-lossy", lambda: phold_scenario(256, 5, loss=0.02,
@@ -252,15 +498,7 @@ def main():
              gossip_cfg(1000))):
         g, grep = run(mk(), cfg, "cuda")
         c, crep = run(mk(), cfg, "cpu")
-        if not (grep.stats == crep.stats).all():
-            fail(f"{name}: stats differ between cuda and cpu")
-        ga, ca = g.final_hosts.numpy(), c.final_hosts.numpy()
-        raw = [f for f in ga if not (ga[f] == ca[f]).all()]
-        ga, ca = canonicalize_state(ga), canonicalize_state(ca)
-        bad = [f for f in ga if ga[f].dtype != ca[f].dtype
-               or not (ga[f] == ca[f]).all()]
-        if bad:
-            fail(f"{name}: Hosts fields differ between cuda and cpu: {bad}")
+        raw = _same_on_both(name, (g, grep), (c, crep), canonicalize_state)
         if name.startswith("phold") and not grep.summary()["drop_net"]:
             fail(f"{name}: no packet was lost on the lossy edge")
         print(f"  {name}: events={grep.events} cuda_wall="
@@ -268,12 +506,111 @@ def main():
               f"fields_equal=82 raw_differing={raw}", flush=True)
     phase("gpu=cpu", time.perf_counter() - t0)
 
-    print(f"total wall {time.perf_counter() - t_all:.1f}s")
-    print(json.dumps({"kernels": []}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
-    return 0
+
+def cbrt_phase():
+    """7. the float32 cbrt of the cubic: the card gives the CPU's bits."""
+    from shadow_tpu_torch.net.congestion import cbrt_f32
+    t0 = time.perf_counter()
+    x = cbrt_inputs()
+    cpu_bits = torch.cat([cbrt_f32(v) for v in x.split(1 << 20)]
+                         ).view(torch.int32)
+    gpu_bits = cbrt_f32(x.cuda()).view(torch.int32).cpu()
+    same = (cpu_bits == gpu_bits) | (torch.isnan(x) & torch.isnan(
+        gpu_bits.view(torch.float32)) & torch.isnan(cpu_bits.view(
+            torch.float32)))
+    diff = int((~same).sum())
+    if diff:
+        fail(f"cbrt_f32 cuda != cpu on {diff} of {x.numel()} inputs")
+    phase("cbrt", time.perf_counter() - t0, inputs=x.numel(), mismatches=0)
+
+
+def socks10k_phase(defs):
+    """8. socks10k through Simulation on the card."""
+    t0 = time.perf_counter()
+    sim = socks10k_sim()
+    seen = [0]
+
+    def progress(label):
+        if label == "advance":
+            seen[0] += 1
+            if seen[0] % 200 == 0:
+                print(f"  socks10k: {seen[0]} windows, wall "
+                      f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    rep = sim.run(clock=progress)
+    s = rep.summary()
+    st = rep.stats
+    from shadow_tpu_torch.apps.base import APP_SOCKS_CLIENT
+    clients = st[(sim.hp.app_kind[:, 0] == APP_SOCKS_CLIENT).cpu().numpy()]
+    done_share = float((clients[:, defs.ST_XFER_DONE] > 0).mean())
+    sock_fail = st[:, defs.ST_SOCK_FAIL]
+    chain_short = st[:, defs.ST_CHAIN_SHORT]
+    if s["transfers_done"] <= 0 or done_share <= 0:
+        fail(f"socks10k: no client completed a fetch: {s}")
+    if s["drop_q"] != 0:
+        fail(f"socks10k: event-queue drops {s['drop_q']} (engine fault)")
+    print(f"  socks10k run: {json.dumps(rates(rep) | s)}", flush=True)
+    span = launches_in_span(lambda: socks10k_sim(2.3), 20, 20)
+    phase("socks10k", time.perf_counter() - t0, **rates(rep),
+          stop_sim_s=SOCKS_STOP_S,
+          launches_per_pass=span["launches_per_pass"],
+          span=json.dumps(span, separators=(",", ":")),
+          bytes_recv=s["bytes_recv"], transfers_done=s["transfers_done"],
+          retransmits=s["retransmits"], clients_done_share=round(
+              done_share, 6),
+          sock_fail_sum=int(sock_fail.sum()),
+          sock_fail_hosts=int((sock_fail > 0).sum()),
+          chain_short_sum=int(chain_short.sum()),
+          chain_short_hosts=int((chain_short > 0).sum()),
+          drop_net=s["drop_net"], defer_fanin=s["defer_fanin"])
+
+
+def tcp_gpu_cpu_phase(canonicalize_state):
+    """9. TCP on the card and on the CPU, bit for bit."""
+    from shadow_tpu_torch.engine.state import EngineConfig
+    t0 = time.perf_counter()
+    for name, mk, caps in (
+            ("bulk-lossy", lambda: bulk_scenario(0.05, 120_000, 2),
+             dict(qcap=16, scap=4, obcap=8, incap=16, txqcap=8,
+                  chunk_windows=8)),
+            ("socks-multihop-lossy", lambda: socks_scenario(0.02, 2, 90),
+             dict(qcap=32, scap=12, obcap=16, incap=24, txqcap=12,
+                  chunk_windows=8))):
+        n = mk().total_hosts()
+        g = run(mk(), EngineConfig(num_hosts=n, **caps), "cuda")
+        c = run(mk(), EngineConfig(num_hosts=n, **caps), "cpu")
+        raw = _same_on_both(name, g, c, canonicalize_state)
+        s = g[1].summary()
+        if not s["retransmits"] or not s["transfers_done"]:
+            fail(f"{name}: no loss recovery or no transfer: {s}")
+        print(f"  {name}: events={s['events']} retransmits="
+              f"{s['retransmits']} transfers={s['transfers_done']} "
+              f"cuda_wall={g[1].wall_seconds:.3f}s cpu_wall="
+              f"{c[1].wall_seconds:.3f}s fields_equal=82 "
+              f"raw_differing={raw}", flush=True)
+    phase("tcp-gpu=cpu", time.perf_counter() - t0)
+
+
+def cli_tcp_phase(cli):
+    """10. bulk and SOCKS XML through the CLI, on the card by default."""
+    import tempfile
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, scen in (("bulk", bulk_scenario(0.05, 120_000, 2)),
+                           ("socks", socks_scenario(0.02, 2, 90))):
+            path = os.path.join(tmp, f"{name}.xml")
+            with open(path, "w") as f:
+                f.write(scen.to_xml())
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli([path, "--runahead", "10ms", "--summary-json"])
+            s = json.loads(buf.getvalue().strip().splitlines()[-1])
+            if rc != 0 or s["device"] != "cuda" or not s["transfers_done"]:
+                fail(f"cli {name}: rc={rc} {s}")
+            out[name] = (s["events"], s["transfers_done"], s["windows"])
+    phase("cli-tcp", time.perf_counter() - t0,
+          **{f"{k}_events_xfers_windows": v for k, v in out.items()})
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Command line: run a Shadow XML scenario on the PyTorch port.
 
     python -m shadow_tpu_torch CONFIG [--stop-time T] [--seed N]
-        [--engine-caps K=V,...] [--summary-json] [--device cuda|cpu]
+        [--engine-caps K=V,...] [--runahead TIME] [--summary-json]
+        [--device cuda|cpu]
 
 Runs on the card unless ``--device cpu`` is given. Prints the summary,
 the capacity report and, with ``--summary-json``, the summary as one
@@ -29,6 +30,11 @@ def main(argv=None) -> int:
     p.add_argument("--engine-caps", default=None, metavar="K=V,...",
                    help="override engine array capacities, e.g. "
                         "qcap=16,scap=2,obcap=16,incap=32,chunk=256")
+    p.add_argument("--runahead", default=None, metavar="TIME",
+                   help="override the lookahead window width (e.g. 10ms; "
+                        "the reference's --runahead). Wider than the "
+                        "minimum path latency trades causality slack for "
+                        "fewer windows, as in the reference")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
     p.add_argument("--summary-json", action="store_true",
@@ -60,6 +66,15 @@ def main(argv=None) -> int:
 
     sim = Simulation(scenario, topology=topo, engine_cfg=cfg,
                      device=args.device)
+    if args.runahead:
+        ra = parse_time(args.runahead, default_unit="ms")
+        true_min = int(sim.sh.min_jump)
+        if ra > true_min:
+            sys.stderr.write(
+                f"shadow_tpu_torch: warning: runahead {ra}ns exceeds the "
+                f"minimum path latency {true_min}ns: cross-host arrivals "
+                "may execute late (the reference gives the same warning)\n")
+        sim.sh.min_jump = sim.sh.min_jump.new_tensor(max(ra, 1))
     report = sim.run()
     s = report.summary()
     print(f"done: {s['events']} events in {s['wall_seconds']:.2f}s wall "

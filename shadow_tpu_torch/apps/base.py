@@ -9,7 +9,7 @@ convention:
 ``m`` masks the rows whose wake this app handles, ``wake`` is the
 ``[H, PKT_WORDS]`` wake packet (ACK = reason, SEQ = socket or -1) and
 ``branches`` is the set of branch indices (the reason clipped to
-[0, 2]) that at least one of those rows takes: a branch no row takes
+[0, 6]: WAKE_START .. WAKE_SENT) that at least one of those rows takes: a branch no row takes
 is skipped, which saves its launches and changes no row. Apps keep
 their state in ``app_node``/``app_r`` and read ``app_cfg``; with one
 process slot per host those are the ``[:, 0]`` views.
@@ -37,6 +37,7 @@ APP_GOSSIP = 8
 APP_SOCKS_CLIENT = 9
 APP_SOCKS_PROXY = 10
 N_APP_KINDS = 11
+N_BRANCHES = 7      # wake reasons WAKE_START=0 .. WAKE_SENT=6
 
 
 def regs(st):
@@ -50,8 +51,8 @@ def cfg_words(hp):
 
 
 def branch_of(wake):
-    """[H] branch index of a wake: its reason clipped to [0, 2]."""
-    return wake[:, P.ACK].clamp(0, 2)
+    """[H] branch index of a wake: its reason clipped to [0, 6]."""
+    return wake[:, P.ACK].clamp(0, N_BRANCHES - 1)
 
 
 def set_reg(st, m, i: int, val):
@@ -68,27 +69,36 @@ def draw(st, hp, m):
     return u
 
 
-def schedule_wake(st, m, t, reason):
-    """Push a future slotless EV_APP for each masked row (SEQ = -1; the
-    SRC word carries the scheduling process slot, app_proc)."""
+def schedule_wake(st, m, t, reason, sock=-1, aux=0, wnd=0, ln=0):
+    """Push a future EV_APP for each masked row: reason in ACK, `sock`
+    in SEQ (-1: slotless), `aux`/`wnd`/`ln` in AUX/WND/LEN; the SRC
+    word carries the scheduling process slot (app_proc)."""
     wake = torch.zeros((st.eq_ctr.shape[0], P.PKT_WORDS), dtype=torch.int32,
                        device=st.eq_ctr.device)
     wake[:, P.ACK] = reason
-    wake[:, P.SEQ] = -1
+    wake[:, P.SEQ] = sock
+    wake[:, P.AUX] = aux
+    wake[:, P.WND] = wnd
+    wake[:, P.LEN] = ln
     wake[:, P.SRC] = st.app_proc
     equeue.q_push(st, m, t, EV_APP, wake)
 
 
-def timer(st, m, t):
-    schedule_wake(st, m, t, WAKE_TIMER)
+def timer(st, m, t, aux=0):
+    schedule_wake(st, m, t, WAKE_TIMER, aux=aux)
 
 
 def _ported_apps():
+    from .bulk import app_bulk, app_bulk_server
     from .gossip import app_gossip
     from .phold import app_phold
     from .ping import app_ping, app_ping_server
+    from .socks import app_socks_client, app_socks_proxy
     return {APP_PING: app_ping, APP_PING_SERVER: app_ping_server,
-            APP_PHOLD: app_phold, APP_GOSSIP: app_gossip}
+            APP_PHOLD: app_phold, APP_BULK: app_bulk,
+            APP_BULK_SERVER: app_bulk_server, APP_GOSSIP: app_gossip,
+            APP_SOCKS_CLIENT: app_socks_client,
+            APP_SOCKS_PROXY: app_socks_proxy}
 
 
 def dispatch(st, hp, sh, m, now, wake, present):

@@ -13,6 +13,11 @@ Ported plugins:
   pingserver  port=N
   phold       port=N mean=<time> size=BYTES init=N
   gossip      port=N fanout=N interval=<time> miner=0|1 size=BYTES n=N
+  bulk        peer=<host> port=N size=BYTES count=N pause=<time>
+  bulkserver  port=N
+  socksclient proxy-lo=ID proxy-hi=ID proxy-port=N server-lo=ID
+              server-hi=ID size=BYTES count=N pause=<time> hops=1..3
+  socksproxy  port=N server-port=N relay-lo=ID relay-hi=ID
 """
 
 from __future__ import annotations
@@ -20,7 +25,9 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.simtime import parse_time
-from .base import APP_GOSSIP, APP_PHOLD, APP_PING, APP_PING_SERVER
+from .base import (APP_BULK, APP_BULK_SERVER, APP_GOSSIP, APP_PHOLD,
+                   APP_PING, APP_PING_SERVER, APP_SOCKS_CLIENT,
+                   APP_SOCKS_PROXY)
 
 
 def parse_kv(args: str) -> dict:
@@ -35,9 +42,7 @@ def parse_kv(args: str) -> dict:
 
 
 # plugins of the reference that later slices port
-_LATER = {"bulk": "ROADMAP A6", "bulkserver": "ROADMAP A6",
-          "tgen": "ROADMAP A6", "socksclient": "ROADMAP A6",
-          "socksproxy": "ROADMAP A6"}
+_LATER = {"tgen": "ROADMAP A6b"}
 
 
 def compile_app(plugin: str, args: str, dns, num_hosts: int):
@@ -72,6 +77,50 @@ def compile_app(plugin: str, args: str, dns, num_hosts: int):
         cfg[4] = int(kv.get("miner", 0))
         cfg[5] = int(kv.get("size", 500))
         return APP_GOSSIP, cfg
+    if plugin == "bulk":
+        cfg[0] = dns.resolve(kv["peer"])
+        cfg[1] = int(kv.get("port", 80))
+        cfg[2] = int(kv.get("size", 1 << 20))
+        cfg[3] = int(kv.get("count", 1))
+        cfg[4] = parse_time(kv.get("pause", "1s"))
+        return APP_BULK, cfg
+    if plugin == "bulkserver":
+        cfg[1] = int(kv.get("port", 80))
+        return APP_BULK_SERVER, cfg
+    if plugin == "socksclient":
+        # host-id ranges name the relay and server pools (hosts are
+        # id-ordered by their declaration order in the scenario)
+        cfg[0] = int(kv["proxy-lo"])
+        cfg[1] = int(kv["proxy-hi"])
+        cfg[2] = int(kv.get("proxy-port", 9050))
+        cfg[3] = int(kv["server-lo"])
+        cfg[4] = int(kv["server-hi"])
+        if cfg[4] - 1 > 0xFFFFF:
+            raise ValueError(
+                "socksclient server host ids exceed the 20-bit "
+                "CONNECT-tag field (max id 1048575)")
+        # sizes round UP to the tag's 4 KiB units (never under-deliver)
+        size_u4k = max(1, (int(kv.get("size", 51200)) + 4095) >> 12)
+        if size_u4k > 0x1FF:
+            raise ValueError(
+                f"socksclient size {kv.get('size')} exceeds the "
+                "~2 MiB per-fetch limit of the tag encoding")
+        cfg[5] = size_u4k
+        cfg[6] = int(kv.get("count", 0))
+        hops = int(kv.get("hops", 1))
+        if not 1 <= hops <= 3:
+            raise ValueError("socksclient hops must be 1-3 "
+                             "(relays per circuit)")
+        cfg[7] = parse_time(kv.get("pause", "1s")) | (hops << 56)
+        return APP_SOCKS_CLIENT, cfg
+    if plugin == "socksproxy":
+        # chain extension dials the next relay on THIS relay's port=,
+        # so every relay in one pool must listen on the same port
+        cfg[1] = int(kv.get("port", 9050))
+        cfg[2] = int(kv.get("server-port", 80))
+        cfg[3] = int(kv.get("relay-lo", 0))
+        cfg[4] = int(kv.get("relay-hi", 0))
+        return APP_SOCKS_PROXY, cfg
     if plugin in _LATER:
         raise NotImplementedError(
             f"plugin {plugin!r} is not ported to shadow_tpu_torch yet "
@@ -80,8 +129,9 @@ def compile_app(plugin: str, args: str, dns, num_hosts: int):
         raise NotImplementedError(
             "hosted applications are not ported to shadow_tpu_torch yet "
             "(ROADMAP A9)")
-    raise ValueError(f"unknown plugin {plugin!r} "
-                     "(ported: ping, pingserver, phold, gossip)")
+    raise ValueError(f"unknown plugin {plugin!r} (ported: ping, "
+                     "pingserver, phold, gossip, bulk, bulkserver, "
+                     "socksclient, socksproxy)")
 
 
 # --- scenario-scaled engine capacities (shrink campaign, lever 3) ---------

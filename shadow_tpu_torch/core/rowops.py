@@ -10,6 +10,12 @@ and masked: a row changes only where its ``cond`` holds.
 
 Out-of-range slots behave as the reference's one-hot form: a read
 returns zeros and a write is dropped.
+
+:class:`Slot` prepares one slot per row once for many reads and
+writes (the TCP machine touches dozens of socket columns at one slot):
+a read is one gather, and a write is one masked select over the whole
+``[H, N, ...]`` array against a ``[H, N]`` one-hot — a launch apiece,
+where the per-call gather/select/scatter form takes several.
 """
 
 from __future__ import annotations
@@ -64,3 +70,47 @@ def col_add(arr, col: int, cond, val=1):
 def set_where(arr, cond, val):
     """arr[h] = val[h] where cond[h] (in place; [H] arrays)."""
     arr.copy_(torch.where(cond, val, arr))
+
+
+def _trail(mask, arr):
+    """[H, N] mask viewed against a [H, N, ...] array."""
+    return mask.view(mask.shape + (1,) * (arr.dim() - 2))
+
+
+class Slot:
+    """One slot index per row (``idx`` [H]) into tables of width ``n``."""
+
+    def __init__(self, idx, n: int):
+        self.idx = idx
+        self.ok = (idx >= 0) & (idx < n)
+        self.ix = idx.to(torch.int64).clamp(0, n - 1).unsqueeze(1)
+        # out-of-range rows match nothing: their writes are dropped
+        self.oh = torch.arange(n, device=idx.device) == idx.unsqueeze(1)
+
+    def get(self, arr):
+        """arr[h, idx[h]] per row (zeros out of range)."""
+        ix = self.ix
+        if arr.dim() > 2:
+            ix = ix.view(ix.shape + (1,) * (arr.dim() - 2)).expand(
+                (arr.shape[0], 1) + tuple(arr.shape[2:]))
+        v = arr.gather(1, ix).squeeze(1)
+        return torch.where(_bcast(self.ok, v), v,
+                           False if arr.dtype == torch.bool else 0)
+
+    def mask(self, m):
+        """[H, N] write mask: the slot of each row where m holds."""
+        return self.oh & m.unsqueeze(1)
+
+
+
+def mput(arr, w, val):
+    """arr[h, j] = val[h] where the [H, N] write mask w[h, j] holds (in
+    place; `val` a python scalar, a 0-d or a per-row tensor)."""
+    wb = _trail(w, arr)
+    if not torch.is_tensor(val):
+        arr.masked_fill_(wb, val)
+        return
+    val = val.to(arr.dtype)
+    if val.dim() > 0:
+        val = val.unsqueeze(1)
+    torch.where(wb, val, arr, out=arr)

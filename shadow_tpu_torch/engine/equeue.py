@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.rowops import col_add, rset_where, set_where
+from ..core.rowops import col_add, mput, rset_where, set_where
 from ..core.simtime import SIMTIME_MAX
 from .defs import EV_NULL, ST_EQ_FULL_LOCAL
 
@@ -28,12 +28,13 @@ def q_push(st, m, t, kind, pkt):
     eq_ctr advances either way."""
     free = st.eq_time == SIMTIME_MAX
     has_free = free.any(1)
-    slot = free.to(torch.int32).argmax(1)
     w = m & has_free
-    rset_where(st.eq_time, slot, w, t)
-    rset_where(st.eq_seq, slot, w, st.eq_ctr)
-    rset_where(st.eq_kind, slot, w, kind)
-    rset_where(st.eq_pkt, slot, w, 0 if pkt is None else pkt)
+    # one-hot of each row's first free slot, where m holds
+    first = free & (torch.cumsum(free, 1) == 1) & w.unsqueeze(1)
+    mput(st.eq_time, first, t)
+    mput(st.eq_seq, first, st.eq_ctr)
+    mput(st.eq_kind, first, kind)
+    mput(st.eq_pkt, first, 0 if pkt is None else pkt)
     st.eq_ctr += m.to(torch.int32)
     low = (torch.minimum(st.eq_next, t) if torch.is_tensor(t)
            else st.eq_next.clamp(max=t))

@@ -16,7 +16,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..apps.base import APP_GOSSIP
+from ..apps.base import (APP_BULK, APP_BULK_SERVER, APP_GOSSIP, APP_HOSTED,
+                         APP_SOCKS_CLIENT, APP_SOCKS_PROXY, APP_TGEN)
 from ..apps.compile import compile_app
 from ..core import rng as R
 from ..core.config import Scenario
@@ -249,12 +250,15 @@ class Simulation:
                     f"n={n_draw} covers {bad} non-gossip host id(s); "
                     "their relay datagrams are silently dropped\n")
 
-        # dead-branch knobs the reference derives from the apps: every
-        # ported app is UDP-only, so a resolved config never uses TCP
+        # dead-branch knobs the reference derives from the apps: which
+        # app kinds exist and whether TCP can be opened at all
         if self.cfg.app_kinds is None:
             kinds = tuple(sorted(set(int(k) for k in app_kind.ravel())))
-            self.cfg = dataclasses.replace(self.cfg, app_kinds=kinds,
-                                           uses_tcp=False)
+            tcp_kinds = {APP_TGEN, APP_BULK, APP_BULK_SERVER, APP_HOSTED,
+                         APP_SOCKS_CLIENT, APP_SOCKS_PROXY}
+            self.cfg = dataclasses.replace(
+                self.cfg, app_kinds=kinds,
+                uses_tcp=bool(tcp_kinds & set(kinds)))
         if (cpu_cost > 0).any() and not self.cfg.cpu_model:
             self.cfg = dataclasses.replace(self.cfg, cpu_model=True)
         if pcap_on.any() and self.cfg.tracecap == 0:

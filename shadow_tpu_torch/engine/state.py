@@ -71,10 +71,8 @@ def check_supported(cfg: EngineConfig):
     """Raise NotImplementedError for engine features this port does not
     run yet, naming the ROADMAP item that brings each."""
     missing = []
-    if cfg.uses_tcp:
-        missing.append("TCP sockets (uses_tcp; ROADMAP A6)")
     if cfg.procs_per_host > 1:
-        missing.append("several processes per host (ROADMAP A6)")
+        missing.append("several processes per host (ROADMAP A6b)")
     if cfg.netscope:
         missing.append("the network observatory (netscope; ROADMAP A7)")
     if cfg.tracecap > 0:
@@ -91,6 +89,9 @@ def check_supported(cfg: EngineConfig):
 @dataclass
 class Hosts:
     """All mutable per-host state. Every tensor has leading dim H."""
+    # not a field: False when the config can open no TCP socket, so the
+    # NIC skips its socket-table scan (every socket is UDP; none wants)
+    tcp = True
     # --- event queue (the per-host scheduler) ---
     eq_time: torch.Tensor   # [H, Q] i64, SIMTIME_MAX = free slot
     eq_seq: torch.Tensor    # [H, Q] i32 tie-break
@@ -237,7 +238,7 @@ def alloc_hosts(cfg: EngineConfig, device) -> Hosts:
     PP = max(cfg.procs_per_host, 1)
     HW = max(cfg.hostedcap, 1)
     TC = max(cfg.tracecap, 1)
-    return Hosts(
+    hosts = Hosts(
         eq_time=full((H, Q), SIMTIME_MAX, i64),
         eq_seq=full((H, Q), 0, i32),
         eq_kind=full((H, Q), 0, i32),
@@ -322,6 +323,8 @@ def alloc_hosts(cfg: EngineConfig, device) -> Hosts:
                      i64),
         cap_peaks=full((H, 4), 0, i32),
     )
+    hosts.tcp = bool(cfg.uses_tcp)
+    return hosts
 
 
 def make_shared(topo_lat_ns: np.ndarray, topo_rel: np.ndarray,

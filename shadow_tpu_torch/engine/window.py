@@ -30,49 +30,108 @@ from __future__ import annotations
 
 import torch
 
-from ..apps.base import N_APP_KINDS, branch_of, dispatch
+from ..apps.base import N_APP_KINDS, N_BRANCHES, branch_of, dispatch
 from ..core import rng as R
 from ..core.rowops import col_add, rget
 from ..core.simtime import SIMTIME_MAX
 from ..net import nic
 from ..net import packet as P
+from ..net import tcp
 from ..net.socket import sock_demux
 from ..net.udp import udp_deliver
 from . import equeue
-from .defs import (EV_APP, EV_NIC_TX, EV_NULL, EV_PKT, N_EVENT_KINDS,
-                   ST_DEFER_FANIN, ST_EVENTS, ST_PKTS_DROP_NET,
-                   ST_PKTS_DROP_Q, ST_PKTS_RECV)
+from .defs import (EV_APP, EV_NIC_TX, EV_NULL, EV_PKT, EV_TCP_CLOSE,
+                   EV_TCP_TIMER, N_EVENT_KINDS, ST_DEFER_FANIN, ST_EVENTS,
+                   ST_PKTS_DROP_NET, ST_PKTS_DROP_Q, ST_PKTS_RECV)
 from .state import EngineConfig
 
 # pass-flag codes: an event kind, or (for EV_APP) one per (app, branch)
-_N_CODES = N_EVENT_KINDS + 3 * N_APP_KINDS
+_N_CODES = N_EVENT_KINDS + N_BRANCHES * N_APP_KINDS
+
+# TCP pass-flag parts (uses_tcp configs): which TCP sub-branches some
+# row of the pass can take, so that the others launch nothing. Read off
+# the popped event's words, plus two cheap state reads ("sack": a
+# non-empty sender scoreboard to prune; "rto": the timer is due).
+_TCP_PARTS = ("udp", "rst", "accept", "conn", "data", "fin", "finack",
+              "sack", "pull", "rto")
+
+# False runs every TCP sub-branch on every pass that has a TCP row (the
+# launches-per-pass baseline the split is measured against; results
+# are equal either way)
+SPLIT_TCP = True
 
 
 def _app_code(app_kind, branch):
-    return N_EVENT_KINDS + 3 * app_kind + branch
+    return N_EVENT_KINDS + N_BRANCHES * app_kind + branch
 
 
 # --- Event handlers --------------------------------------------------------
 
-def _on_pkt(st, hp, sh, m, now, pkt):
-    """Packet arrival at the NIC: admission, demux, UDP delivery."""
+def _on_pkt(st, hp, sh, m, now, pkt, cfg: EngineConfig, parts):
+    """Packet arrival at the NIC: admission, demux, TCP or UDP."""
     keep = nic.rx_admit(st, hp, m, now, pkt)
     md = m & keep
     col_add(st.stats, ST_PKTS_RECV, md)
     pkt_in = pkt.clone()
     pkt_in[:, P.STATUS] |= P.DS_RX_BUFFERED
+    mu = md
+    if cfg.uses_tcp:
+        is_tcp = (pkt[:, P.FLAGS] & P.PROTO_MASK) == P.PROTO_TCP
+        mu = md & ~is_tcp
+        if parts is None or parts & {"rst", "accept", "conn"}:
+            slot = sock_demux(st, pkt[:, P.SRC], pkt[:, P.SPORT],
+                              pkt[:, P.DPORT], P.PROTO_TCP)
+            tcp.tcp_rx(st, hp, sh, md & is_tcp & (slot >= 0), now, slot,
+                       pkt_in, parts)
+        if parts is not None and "udp" not in parts:
+            return
     slot = sock_demux(st, pkt[:, P.SRC], pkt[:, P.SPORT], pkt[:, P.DPORT],
                       P.PROTO_UDP)
-    udp_deliver(st, hp, sh, md & (slot >= 0), now, slot, pkt_in)
+    udp_deliver(st, hp, sh, mu & (slot >= 0), now, slot, pkt_in)
 
 
-def _pass_flags(kind, app_kind, branch):
-    """Which codes at least one row holds this pass -> python set. The
-    one host sync of the pass (rows with no ready event hold EV_NULL)."""
+def _tcp_features(st, kind, pkt, t):
+    """[len(_TCP_PARTS), H] bool: the rows that can take each part."""
+    flags = pkt[:, P.FLAGS]
+    on_pkt = kind == EV_PKT
+    is_tcp = on_pkt & ((flags & P.PROTO_MASK) == P.PROTO_TCP)
+    syn = (flags & P.F_SYN) != 0
+    rst = (flags & P.F_RST) != 0
+    conn = is_tcp & ~rst
+    sub = tcp.rx_parts(pkt)
+    sboard = (st.sk_sack_s[:, :, 0] >= 0).any(1)
+    deadline = rget(st.sk_rto_deadline, pkt[:, P.SEQ])
+    return torch.stack([
+        on_pkt & ~is_tcp,
+        is_tcp & rst,
+        conn & syn & ((flags & P.F_ACK) == 0),
+        conn,
+        conn & sub["data"],
+        conn & sub["fin"],
+        conn & sub["finack"],
+        conn & (sub["sack"] | sboard),
+        (kind == EV_NIC_TX) & (st.txq_cnt == 0)
+        & (st.ob_cnt < st.ob_time.shape[1]),
+        (kind == EV_TCP_TIMER) & (deadline != 0) & (t >= deadline),
+    ])
+
+
+def _pass_flags(st, kind, app_kind, branch, pkt, t, cfg: EngineConfig):
+    """Which codes at least one row holds this pass -> (set of codes,
+    set of TCP parts or None for all). The one host sync of the pass
+    (rows with no ready event hold EV_NULL)."""
     code = torch.where(kind == EV_APP, _app_code(app_kind, branch), kind)
     present = torch.zeros(_N_CODES, dtype=torch.int32, device=kind.device)
     present.scatter_(0, code.to(torch.int64), 1)
-    return {i for i, v in enumerate(present.tolist()) if v}
+    split = cfg.uses_tcp and SPLIT_TCP
+    if split:
+        feats = _tcp_features(st, kind, pkt, t).any(1).to(torch.int32)
+        present = torch.cat([present, feats])
+    vals = present.tolist()
+    codes = {i for i, v in enumerate(vals[:_N_CODES]) if v}
+    parts = ({n for n, v in zip(_TCP_PARTS, vals[_N_CODES:]) if v}
+             if split else None)
+    return codes, parts
 
 
 def step_all_hosts(st, hp, sh, wend: int, cfg: EngineConfig) -> bool:
@@ -83,28 +142,41 @@ def step_all_hosts(st, hp, sh, wend: int, cfg: EngineConfig) -> bool:
     ready = t < wend
     kind = torch.where(ready, rget(st.eq_kind, slot), EV_NULL)
     pkt = rget(st.eq_pkt, slot)
-    flags = _pass_flags(kind, hp.app_kind[:, 0], branch_of(pkt))
+    flags, parts = _pass_flags(st, kind, hp.app_kind[:, 0], branch_of(pkt),
+                               pkt, t, cfg)
     flags.discard(EV_NULL)
     if not flags:
         return False
 
     equeue.q_clear_slot(st, ready, slot)
-    apps = {((c - N_EVENT_KINDS) // 3, (c - N_EVENT_KINDS) % 3)
+    apps = {((c - N_EVENT_KINDS) // N_BRANCHES,
+             (c - N_EVENT_KINDS) % N_BRANCHES)
             for c in flags if c >= N_EVENT_KINDS}
     if apps:
         dispatch(st, hp, sh, kind == EV_APP, t, pkt, apps)
     if EV_PKT in flags:
-        _on_pkt(st, hp, sh, kind == EV_PKT, t, pkt)
+        _on_pkt(st, hp, sh, kind == EV_PKT, t, pkt, cfg, parts)
     if EV_NIC_TX in flags:
-        nic.on_tx(st, hp, sh, kind == EV_NIC_TX, t, wend)
+        nic.on_tx(st, hp, sh, kind == EV_NIC_TX, t, wend, cfg.qdisc,
+                  pull_tcp=parts is None or "pull" in parts)
+    if cfg.uses_tcp and EV_TCP_TIMER in flags:
+        tcp.on_tcp_timer(st, hp, sh, kind == EV_TCP_TIMER, t, wend, pkt,
+                         expired=parts is None or "rto" in parts)
+    if cfg.uses_tcp and EV_TCP_CLOSE in flags:
+        tcp.on_tcp_close(st, hp, sh, kind == EV_TCP_CLOSE, t, wend, pkt)
 
     # Chain a due-now NIC-TX into the same pass, as the reference does:
     # executing the queue head early is what the next pass would do.
     slot2, t2 = equeue.q_min(st)
     due = ready & (t2 == t) & (rget(st.eq_kind, slot2) == EV_NIC_TX)
-    if bool(due.any()):                     # host sync
+    if cfg.uses_tcp and SPLIT_TCP:
+        pull2 = due & (st.txq_cnt == 0) & (st.ob_cnt < st.ob_time.shape[1])
+        any_due, pull = torch.stack([due.any(), pull2.any()]).tolist()
+    else:
+        any_due, pull = bool(due.any()), True      # host sync
+    if any_due:
         equeue.q_clear_slot(st, due, slot2)
-        nic.on_tx(st, hp, sh, due, t, wend)
+        nic.on_tx(st, hp, sh, due, t, wend, cfg.qdisc, pull_tcp=pull)
     st.stats[:, ST_EVENTS] += ready.to(torch.int64) + due.to(torch.int64)
     return True
 

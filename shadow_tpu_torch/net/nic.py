@@ -6,10 +6,10 @@ the sockets, loopback-vs-outbox emission, and the bounded input buffer
 of ``rx_admit``. Functions take all H rows and a ``[H]`` mask of the
 rows that act.
 
-TCP segment emission (``tcp_pull``) and the qdisc's choice among TCP
-sockets are ROADMAP A6: with no TCP socket in the table no socket ever
-wants the wire, so the transmit ring is the NIC's only work and the
-qdisc setting has nothing to choose between.
+The transmit ring (UDP datagrams) is served first; otherwise the
+qdisc picks one wanting TCP socket — round-robin from ``nic_rr``
+(``QDISC_RR``, the default) or least recently served (``QDISC_FIFO``)
+— and ``tcp_pull`` forms its next segment.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from ..engine.defs import (EV_NIC_TX, EV_PKT, ST_OUTBOX_DROP,
 from . import packet as P
 
 LOOPBACK_DELAY = 1  # ns, the reference's local-delivery task delay
+_I64_MAX = 2**63 - 1
 
 
 def tx_duration(nbytes, bw_bytes_per_sec):
@@ -32,14 +33,22 @@ def tx_duration(nbytes, bw_bytes_per_sec):
             // bw_bytes_per_sec.clamp(min=1))
 
 
+QDISC_FIFO = 0   # least recently served socket first
+QDISC_RR = 1     # round-robin over wanting sockets
+
+
 def tx_want(st):
-    """[H, S] bool: sockets owing the wire a packet. Only TCP sockets
-    do (control bits or data); UDP work lives in the transmit ring."""
-    return st.sk_used & (st.sk_ctl != 0) & (st.sk_proto == P.PROTO_TCP)
+    """[H, S] bool: TCP sockets owing the wire a packet (control bits
+    or data); UDP work lives in the transmit ring."""
+    from .tcp import tcp_want_tx    # tcp imports this module
+    return st.sk_used & ((st.sk_ctl != 0) | tcp_want_tx(st))
 
 
 def has_work(st):
-    return (st.txq_cnt > 0) | tx_want(st).any(1)
+    """[H] bool: the ring or a TCP socket owes the wire a packet (no
+    socket scan when the state can hold no TCP socket, ``st.tcp``)."""
+    ring = st.txq_cnt > 0
+    return ring | tx_want(st).any(1) if st.tcp else ring
 
 
 def txq_push(st, m, pkt):
@@ -93,10 +102,11 @@ def kick(st, m, now):
     set_where(st.nic_sched, need, ok)
 
 
-def on_tx(st, hp, sh, m, now, wend):
+def on_tx(st, hp, sh, m, now, wend, qdisc=QDISC_RR, pull_tcp=True):
     """EV_NIC_TX handler: pull one packet and emit it, or — with the
     outbox (this window's emit budget) full — retry at the window
-    boundary instead of dropping."""
+    boundary instead of dropping. `pull_tcp` False skips the TCP pull
+    (the caller knows no masked row can reach it)."""
     set_where(st.nic_sched, m, False)
     no_room = st.ob_cnt >= st.ob_time.shape[1]
 
@@ -105,19 +115,38 @@ def on_tx(st, hp, sh, m, now, wend):
     equeue.q_push(st, md, (now + 1).clamp(min=wend), EV_NIC_TX, None)
     set_where(st.nic_sched, md, ok)
 
-    _tx_pull(st, hp, m & ~no_room, now)
+    _tx_pull(st, hp, sh, m & ~no_room, now, qdisc, pull_tcp)
 
 
-def _tx_pull(st, hp, m, now):
+def _tx_pull(st, hp, sh, m, now, qdisc=QDISC_RR, pull_tcp=True):
     """Pull one packet — the transmit ring first, else the qdisc's pick
-    among wanting TCP sockets (ROADMAP A6; without TCP sockets no row
-    gets there) — emit it, account bandwidth, and reschedule while work
-    remains."""
+    among wanting TCP sockets — emit it, account bandwidth, and
+    reschedule while work remains."""
     T = st.txq_pkt.shape[1]
-    has_pkt = m & (st.txq_cnt > 0)
-    out = torch.where(has_pkt[:, None], rget(st.txq_pkt, st.txq_head), 0)
-    set_where(st.txq_head, has_pkt, (st.txq_head + 1) % T)
-    set_where(st.txq_cnt, has_pkt, st.txq_cnt - 1)
+    ring = m & (st.txq_cnt > 0)
+    out = torch.where(ring[:, None], rget(st.txq_pkt, st.txq_head), 0)
+    set_where(st.txq_head, ring, (st.txq_head + 1) % T)
+    set_where(st.txq_cnt, ring, st.txq_cnt - 1)
+    has_pkt = ring
+
+    mt = m & ~ring
+    if st.tcp and pull_tcp:
+        want = tx_want(st)
+        S = want.shape[1]
+        ar = torch.arange(S, device=want.device)
+        if qdisc == QDISC_RR:
+            prio = (ar[None, :] - st.nic_rr[:, None]) % S
+            sock = torch.where(want, prio, S).argmin(1)
+        else:
+            key = st.sk_last_tx * S + ar[None, :]
+            sock = torch.where(want, key, _I64_MAX).argmin(1)
+        mt = mt & want.any(1)
+        from .tcp import tcp_pull
+        tpkt, thas = tcp_pull(st, hp, sh, mt, now, sock)
+        sent = mt & thas
+        set_where(st.nic_rr, sent, ((sock + 1) % S).to(torch.int32))
+        out = torch.where(sent[:, None], tpkt, out)
+        has_pkt = ring | sent
 
     wire = P.wire_bytes(out)
     busy = torch.where(has_pkt, tx_duration(wire, hp.bw_up).clamp(min=1), 0)

@@ -12,7 +12,7 @@ import torch
 
 from ..core.constants import (MAX_PORT, MIN_RANDOM_PORT, RECV_BUFFER_SIZE,
                               SEND_BUFFER_SIZE, TCP_RTO_INIT)
-from ..core.rowops import radd_where, rset_where, set_where
+from ..core.rowops import Slot, mput, set_where
 from .packet import PROTO_TCP
 
 # TCP states (shd-tcp.c:10-15).
@@ -27,6 +27,14 @@ TCPS_CLOSE_WAIT = 7
 TCPS_CLOSING = 8
 TCPS_LAST_ACK = 9
 TCPS_TIME_WAIT = 10
+
+# Pending control transmissions (sk_ctl): the header-only packets a
+# socket owes the wire, pulled by the NIC ahead of data.
+CTL_SYN = 1
+CTL_SYNACK = 2
+CTL_ACKNOW = 4
+CTL_FIN = 8
+CTL_RST = 16
 
 _I64_MAX = 2**63 - 1
 
@@ -64,25 +72,24 @@ def sock_alloc(st, m, proto: int):
     tw_rank = torch.where(tw, st.sk_last_tx, _I64_MAX)
     slot = torch.where(any_free, free.to(torch.int32).argmax(1),
                        tw_rank.argmin(1))
-    w = m & ok
+    w = Slot(slot, st.sk_used.shape[1]).mask(m & ok)
     for name, val in _ALLOC_RESET:
-        arr = getattr(st, name)
-        if val is None:
-            val = proto
-        rset_where(arr, slot, w, val)
-    radd_where(st.sk_timer_gen, slot, w, 1)
-    rset_where(st.sk_proc, slot, w, st.app_proc)
+        mput(getattr(st, name), w, proto if val is None else val)
+    st.sk_timer_gen += w.to(torch.int32)
+    mput(st.sk_proc, w, st.app_proc)
     return slot, ok
 
 
 def sock_free(st, m, slot):
     """Release each masked row's socket `slot` (descriptor close)."""
+    sl = slot if isinstance(slot, Slot) else Slot(slot, st.sk_used.shape[1])
+    w = sl.mask(m)
     for name, val in (("sk_used", False), ("sk_proto", 0),
                       ("sk_state", TCPS_CLOSED), ("sk_ctl", 0),
                       ("sk_rto_deadline", 0), ("sk_timer_on", False),
                       ("sk_app_ref", -1)):
-        rset_where(getattr(st, name), slot, m, val)
-    radd_where(st.sk_timer_gen, slot, m, 1)
+        mput(getattr(st, name), w, val)
+    st.sk_timer_gen += w.to(torch.int32)
 
 
 def alloc_eport(st, m):

@@ -171,3 +171,79 @@ def test_lossy_phold_cuda_equals_cpu(cuda_device):
     bad = [f for f in out[0][1]
            if not np.array_equal(out[0][1][f], out[1][1][f])]
     assert not bad, bad
+
+
+# --- TCP tier ------------------------------------------------------------
+
+def poi_topology(loss):
+    """One vertex, a 20 ms self-loop with `loss` (tests/test_tcp.py)."""
+    return f"""<graphml xmlns="http://graphml.graphdrawing.org/xmlns">
+  <key attr.name="latency" attr.type="double" for="edge" id="d7"/>
+  <key attr.name="packetloss" attr.type="double" for="edge" id="d9"/>
+  <key attr.name="bandwidthup" attr.type="int" for="node" id="d4"/>
+  <key attr.name="bandwidthdown" attr.type="int" for="node" id="d3"/>
+  <graph edgedefault="undirected"><node id="poi">
+    <data key="d3">20480</data><data key="d4">10240</data></node>
+    <edge source="poi" target="poi"><data key="d7">20.0</data>
+      <data key="d9">{loss}</data></edge></graph></graphml>"""
+
+
+def bulk_lossy():
+    """tests/test_differential.py:_bulk_scen(loss=0.05, size=120_000,
+    count=2)."""
+    return Scenario(stop_time=60 * 10**9, topology_graphml=poi_topology(0.05),
+                    hosts=[
+        HostSpec(id="server", processes=[ProcessSpec(
+            plugin="bulkserver", start_time=10**9, arguments="port=80")]),
+        HostSpec(id="client", processes=[ProcessSpec(
+            plugin="bulk", start_time=2 * 10**9,
+            arguments="peer=server port=80 size=120000 count=2 "
+                      "pause=1s")])])
+
+
+def socks_multihop_lossy():
+    """tests/test_differential.py:_socks_scen(loss=0.02, hops=2,
+    stop=90): 2 servers, 3 relays, 3 clients."""
+    return Scenario(stop_time=90 * 10**9, topology_graphml=poi_topology(0.02),
+                    hosts=[
+        HostSpec(id="server", quantity=2, processes=[ProcessSpec(
+            plugin="bulkserver", start_time=10**9, arguments="port=80")]),
+        HostSpec(id="relay", quantity=3, processes=[ProcessSpec(
+            plugin="socksproxy", start_time=10**9,
+            arguments="port=9050 server-port=80 relay-lo=2 relay-hi=5")]),
+        HostSpec(id="client", quantity=3, processes=[ProcessSpec(
+            plugin="socksclient", start_time=2 * 10**9,
+            arguments="proxy-lo=2 proxy-hi=5 proxy-port=9050 server-lo=0 "
+                      "server-hi=2 size=30000 count=2 pause=1s hops=2")])])
+
+
+@pytest.mark.cuda
+def test_cbrt_f32_cuda_bits_equal_cpu(cuda_device):
+    from shadow_tpu_torch.net.congestion import cbrt_f32
+    e = np.random.RandomState(3).uniform(-20, 20, 1 << 22)
+    x = torch.from_numpy((2.0 ** e).astype(np.float32))
+    cpu = cbrt_f32(x).view(torch.int32)
+    gpu = cbrt_f32(x.to(cuda_device)).view(torch.int32).cpu()
+    assert torch.equal(cpu, gpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,make,caps", [
+    ("bulk-lossy", bulk_lossy,
+     dict(qcap=16, scap=4, obcap=8, incap=16, txqcap=8, chunk_windows=8)),
+    ("socks-multihop-lossy", socks_multihop_lossy,
+     dict(qcap=32, scap=12, obcap=16, incap=24, txqcap=12,
+          chunk_windows=8))])
+def test_tcp_cuda_equals_cpu(cuda_device, name, make, caps):
+    out = []
+    for dev in ("cpu", cuda_device):
+        n = make().total_hosts()
+        sim = Simulation(make(), device=dev,
+                         engine_cfg=EngineConfig(num_hosts=n, **caps))
+        rep = sim.run()
+        out.append((rep.stats, W.canonicalize_state(sim.final_hosts.numpy())))
+    assert out[0][0][:, 8].sum() > 0          # ST_RETRANSMIT: loss bit
+    assert np.array_equal(out[0][0], out[1][0])
+    bad = [f for f in out[0][1]
+           if not np.array_equal(out[0][1][f], out[1][1][f])]
+    assert not bad, bad

@@ -61,19 +61,25 @@ def assert_states_equal(ref: dict, port: dict):
     assert not bad, f"Hosts fields differ: {bad}"
 
 
-def run_both(make_scenario, cfg: dict = None, make_port_scenario=None):
+def run_both(make_scenario, cfg: dict = None, make_port_scenario=None,
+             cc_kind: int = None):
     """Run one scenario on the reference and on the port (CPU) ->
     (ref_report, port_report). Asserts equal stats, windows and every
     canonicalized Hosts field. The port takes the reference's Scenario
     objects (the same dataclasses) unless `make_port_scenario` builds
-    its own."""
+    its own. `cc_kind` sets the congestion control in both Shared
+    tables (a runtime scalar: the reference keeps its compile)."""
     n = make_scenario().total_hosts()
     rcfg = RefEngineConfig(num_hosts=n, **cfg) if cfg else None
     pcfg = EngineConfig(num_hosts=n, **cfg) if cfg else None
     rsim = RefSimulation(make_scenario(), engine_cfg=rcfg)
-    rrep = rsim.run()
     psim = Simulation((make_port_scenario or make_scenario)(),
                       engine_cfg=pcfg, device="cpu")
+    if cc_kind is not None:
+        import jax.numpy as jnp
+        rsim.sh = rsim.sh.replace(cc_kind=jnp.int32(cc_kind))
+        psim.sh.cc_kind.fill_(cc_kind)
+    rrep = rsim.run()
     prep = psim.run()
     assert np.array_equal(rrep.stats, prep.stats), (
         np.argwhere(rrep.stats != prep.stats)[:10])
@@ -150,17 +156,28 @@ def test_multihop_lossy_topology_matches():
 
 def test_fresh_state_matches():
     """Setup order (attach, DNS, compile_app, make_shared, alloc_hosts,
-    WAKE_START pushes): every Hosts field, the HostParams arrays and the
-    resolved engine config equal the reference's before any window."""
+    WAKE_START pushes): every Hosts field, the HostParams arrays, the
+    Shared tables (TCP scalars included) and the resolved engine config
+    equal the reference's before any window — for a UDP shape and for
+    the TCP bulk and SOCKS shapes."""
+    from test_differential import _bulk_scen, _socks_scen
+
     def scen():
         s = phold_scenario(n=10, stop=3)
         s.topology_graphml = _lossy_mesh()
         return s
 
     cfg = dict(qcap=16, scap=4, obcap=8, incap=16, txqcap=8)
-    rsim = RefSimulation(scen(), engine_cfg=RefEngineConfig(num_hosts=10,
+    for mk in (scen, _bulk_scen(loss=0.05, size=120_000, count=2),
+               _socks_scen(loss=0.02, hops=2)):
+        _fresh_state_equal(mk, cfg)
+
+
+def _fresh_state_equal(scen, cfg):
+    n = scen().total_hosts()
+    rsim = RefSimulation(scen(), engine_cfg=RefEngineConfig(num_hosts=n,
                                                             **cfg))
-    psim = Simulation(scen(), engine_cfg=EngineConfig(num_hosts=10, **cfg),
+    psim = Simulation(scen(), engine_cfg=EngineConfig(num_hosts=n, **cfg),
                       device="cpu")
     assert_states_equal(ref_state(rsim), psim.hosts.numpy())
     for f in ("hid", "rng_stream", "vertex", "bw_up", "bw_down", "app_kind",
@@ -170,7 +187,8 @@ def test_fresh_state_matches():
         b = getattr(psim.hp, f).numpy()
         assert a.dtype == b.dtype and np.array_equal(a, b), f
     for f in ("lat_ns", "rel", "host_vertex", "host_bw_up", "host_bw_down",
-              "seed32", "stop_time", "min_jump", "rng_root"):
+              "seed32", "stop_time", "min_jump", "rng_root", "cc_kind",
+              "tcp_init_wnd", "tcp_ssthresh0"):
         a = np.asarray(getattr(rsim.sh, f))
         b = getattr(psim.sh, f).numpy()
         assert a.dtype == b.dtype and np.array_equal(a, b), f
@@ -191,9 +209,9 @@ def test_phase_clock_sees_every_window():
 
 
 def test_unported_features_raise():
-    """TCP-tier plugins and engine features of later slices raise
+    """tgen and engine features of later slices raise
     NotImplementedError naming their ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="A6b"):
         Simulation(load_xml(os.path.join(ROOT, "examples",
                                          "tgen-web-bulk.xml")),
                    device="cpu")
@@ -210,3 +228,4 @@ def test_cuda_default_needs_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Simulation(phold_scenario(n=4, stop=2))
+
