@@ -22,20 +22,20 @@ non-zero. Phases:
               8,000 socksclients fetching 48 KiB through one relay) on
               the ER-300 stand-in topology, runahead 10 ms, through
               Simulation: clients complete fetches, no host's socket
-              table overflows; launches per pass from a profiled span
-              of windows.
+              table overflows; launches per pass and the device's busy
+              share from a span of the run's passes (``PassSpan``).
 9. tcp gpu=cpu — lossy bulk and multihop lossy SOCKS on cuda and on
               cpu: equal stats and equal Hosts fields.
 10. cli-tcp — the same bulk and SOCKS scenarios as XML through
               ``python -m shadow_tpu_torch --runahead 10ms`` on the card.
 
 ``python3 chip_smoke.py --profile`` instead measures where the wall
-goes in phold-4096, gossip-100k and a span of socks10k windows: a
-per-phase wall split (drain, exchange, advance; synchronized at each
-phase end) and a ``torch.profiler`` run (kernel launches, device
-kernel time, the device's busy share, the top kernels); for socks10k
-with the TCP pass-flag split on and off. ``--phases a,b`` runs only
-the named phases of the default run (or of ``--profile``).
+goes in phold-4096 and gossip-100k: a per-phase wall split (drain,
+exchange, advance; synchronized at each phase end) and a
+``torch.profiler`` run (kernel launches, device kernel time, the
+device's busy share against the unprofiled wall, the top kernels).
+``--phases a,b`` runs only the named phases of the default run (or of
+``--profile``).
 
 The JAX package has no Pallas kernel, so this slice ports no kernel:
 the port's device work is plain PyTorch, and the ``kernels`` line is an
@@ -132,7 +132,8 @@ def rates(rep):
 
 
 def profile_cell(name, mk, cfg):
-    """Wall split by phase, then a torch.profiler run of the same cell."""
+    """Wall split by phase, then a torch.profiler run of the same cell
+    (the same passes: the run is deterministic)."""
     from torch.profiler import ProfilerActivity, profile
 
     split = {"drain": 0.0, "exchange": 0.0, "advance": 0.0}
@@ -148,6 +149,7 @@ def profile_cell(name, mk, cfg):
     sim = Simulation(mk(), engine_cfg=cfg, device="cuda")
     last[0] = time.perf_counter()
     rep = sim.run(clock=clock)
+    plain_wall = rep.wall_seconds
     print(f"profile {name}: split " + json.dumps(
         {k: round(v, 4) for k, v in split.items()}
         | {"wall_s": round(rep.wall_seconds, 4), "passes": rep.passes,
@@ -171,7 +173,8 @@ def profile_cell(name, mk, cfg):
         "kernel_launches": launches,
         "launches_per_pass": round(launches / max(rep.passes, 1), 1),
         "device_kernel_ms": round(kern_us / 1e3, 3),
-        "device_busy_share": (round(kern_us / 1e6 / rep.wall_seconds, 4)
+        # against the unprofiled run's wall: the profiler slows the host
+        "device_busy_share": (round(kern_us / 1e6 / plain_wall, 4)
                               if kern_us else "not measured"),
         "top_kernels_ms": {k[:60]: round(v / 1e3, 3) for k, v in top}}),
         flush=True)
@@ -252,100 +255,114 @@ def cbrt_inputs():
                       torch.tensor(edges, dtype=torch.float32)])
 
 
-def launches_in_span(make_sim, first_window, passes):
-    """Kernel launches, device time and wall over `passes` drain passes
-    from the start of window `first_window` of a run (torch.profiler,
-    CUDA activity; the rest of the run goes unprofiled). Few passes:
-    the profiler's post-processing costs minutes per 10^6 events."""
-    from torch.profiler import ProfilerActivity, profile
-    from shadow_tpu_torch.engine import window as W
+class PassSpan:
+    """Kernel launches and device time over `passes` drain passes from
+    the start of window `first_window` of the run whose ``clock`` it
+    is. The run copies its state where the span starts and goes on
+    unprofiled; after it, ``report`` replays the span's passes from
+    that copy twice: timed without the profiler, then under
+    ``torch.profiler`` (CUDA activity). The passes are the run's own
+    (the drain is deterministic), the run's wall carries only the
+    copy, and the busy share is the profiled kernel time over the
+    unprofiled wall: the profiler roughly doubles a pass's host time.
+    Few passes: the profiler's post-processing costs minutes per 10^6
+    events."""
 
-    sim = make_sim()
-    state = {"w": 0, "n": 0, "prof": None, "wall": 0.0, "open": True}
-    inner = W.step_all_hosts
+    def __init__(self, first_window, passes):
+        self.first, self.passes = first_window, passes
+        self.w = 0
+        self.snap = None
+        self.cost = 0.0
 
-    def step(*a, **kw):
-        armed = state["w"] == first_window - 1 and state["open"]
-        if armed and state["prof"] is None:
-            state["prof"] = profile(activities=[ProfilerActivity.CUDA])
-            state["prof"].start()
-        if armed:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        ran = inner(*a, **kw)
-        if armed:
-            torch.cuda.synchronize()
-            state["wall"] += time.perf_counter() - t0
-            state["n"] += ran
-            if state["n"] == passes or not ran:
-                state["prof"].stop()
-                state["open"] = False
-        return ran
-
-    def clock(label):
+    def clock(self, label):
         if label == "advance":
-            state["w"] += 1
+            self.w += 1
 
-    W.step_all_hosts = step
-    try:
-        sim.run(clock=clock)
-    finally:
-        W.step_all_hosts = inner
-    prof = state["prof"]
-    if prof is None or state["open"] or not state["n"]:
-        fail(f"profiled span did not run (windows run: {state['w']})")
-    launches, kern_us = 0, 0.0
-    raw = getattr(prof.profiler, "kineto_results", None)
-    for e in (raw.events() if raw is not None else ()):
-        if e.name().startswith(("cudaLaunchKernel", "cuLaunchKernel")):
-            launches += 1
-        elif str(e.device_type()).endswith("CUDA"):
-            kern_us += e.duration_ns() / 1e3
-    if raw is None:
-        for e in prof.key_averages():
-            if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
-                launches += e.count
-            dev = getattr(e, "self_device_time_total", 0.0)
-            if dev and str(getattr(e, "device_type", "")).endswith("CUDA"):
-                kern_us += dev
-    n = state["n"]
-    return {"window": first_window, "passes": n, "launches": launches,
-            "launches_per_pass": round(launches / n, 1),
-            "device_kernel_ms": round(kern_us / 1e3, 3),
-            "drain_wall_ms": round(state["wall"] * 1e3, 3),
-            "device_busy_share": round(kern_us / 1e6 / state["wall"], 4)}
+    @contextlib.contextmanager
+    def attached(self):
+        from shadow_tpu_torch.engine import window as W
+        inner = self.inner = W.step_all_hosts
+        W.step_all_hosts = lambda *a: self._step(inner, *a)
+        try:
+            yield self
+        finally:
+            W.step_all_hosts = inner
+
+    def _step(self, inner, st, *rest):
+        if self.snap is None and self.w == self.first - 1:
+            t0 = time.perf_counter()
+            self.snap = (type(st), {k: v.clone() for k, v in
+                                    vars(st).items()}, rest)
+            torch.cuda.synchronize()
+            self.cost = time.perf_counter() - t0
+        return inner(st, *rest)
+
+    def _replay(self):
+        """Run the span's passes on a fresh copy -> (passes, wall s)."""
+        cls, arrs, rest = self.snap
+        st = cls(**{k: v.clone() for k, v in arrs.items()})
+        n = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while n < self.passes and self.inner(st, *rest):
+            n += 1
+        torch.cuda.synchronize()
+        return n, time.perf_counter() - t0
+
+    def report(self):
+        from torch.profiler import ProfilerActivity, profile
+        if self.snap is None:
+            fail(f"the span's window was not reached (windows run: "
+                 f"{self.w})")
+        n_plain, plain_wall = self._replay()
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        n, prof_wall = self._replay()
+        prof.stop()
+        self.snap = None
+        if not n or n != n_plain:
+            fail(f"span replays ran {n_plain} and {n} passes")
+        launches, kern_us = 0, 0.0
+        raw = getattr(prof.profiler, "kineto_results", None)
+        for e in (raw.events() if raw is not None else ()):
+            if e.name().startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+                launches += 1
+            elif str(e.device_type()).endswith("CUDA"):
+                kern_us += e.duration_ns() / 1e3
+        if raw is None:
+            for e in prof.key_averages():
+                if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+                    launches += e.count
+                dev = getattr(e, "self_device_time_total", 0.0)
+                if dev and str(getattr(e, "device_type", "")).endswith(
+                        "CUDA"):
+                    kern_us += dev
+        return {"window": self.first, "passes": n, "launches": launches,
+                "launches_per_pass": round(launches / n, 1),
+                "device_kernel_ms": round(kern_us / 1e3, 3),
+                "drain_wall_ms": round(plain_wall * 1e3, 3),
+                "profiled_drain_wall_ms": round(prof_wall * 1e3, 3),
+                "device_busy_share": round(kern_us / 1e6 / plain_wall, 4),
+                "state_copy_s": round(self.cost, 3)}
 
 
-def socks10k_sim(stop_s=None):
-    """socks10k on the card, stopping at `stop_s` sim-s (default
-    SOCKS_STOP_S)."""
+def socks10k_sim():
+    """socks10k on the card, stopping at SOCKS_STOP_S sim-s."""
     from shadow_tpu_torch.baseline_configs import socks10k
-    stop_s = SOCKS_STOP_S if stop_s is None else stop_s
-    sim = socks10k(n=10_000, stop=-(-stop_s // 1), device="cuda",
-                   runahead_ms=10)
-    sim.sh.stop_time.fill_(int(stop_s * 10**9))
-    return sim
+    return socks10k(n=10_000, stop=SOCKS_STOP_S, device="cuda",
+                    runahead_ms=10)
 
 
 
 def profile_run(only):
     """--profile: wall split and profiler runs of phold-4096 and
-    gossip-100k, and launches per pass over a span of socks10k windows
-    with the TCP pass-flag split off and on."""
+    gossip-100k (socks10k's profiled span is part of its phase)."""
     if only is None or "phold-4096" in only:
         profile_cell("phold-4096", lambda: phold_scenario(4096, 5),
                      phold_cfg(4096))
     if only is None or "gossip-100k" in only:
         profile_cell("gossip-100k", lambda: gossip_scenario(100_000),
                      gossip_cfg(100_000))
-    if only is None or "socks10k" in only:
-        from shadow_tpu_torch.engine import window as W
-        for split in (False, True, False, True):
-            W.SPLIT_TCP = split
-            span = launches_in_span(lambda: socks10k_sim(2.3), 20, 20)
-            print(f"profile socks10k split_tcp={split}: "
-                  + json.dumps(span), flush=True)
-        W.SPLIT_TCP = True
 
 
 def main():
@@ -537,7 +554,14 @@ def socks10k_phase(defs):
                 print(f"  socks10k: {seen[0]} windows, wall "
                       f"{time.perf_counter() - t0:.1f}s", flush=True)
 
-    rep = sim.run(clock=progress)
+    span = PassSpan(20, 20)
+
+    def clock(label):
+        span.clock(label)
+        progress(label)
+
+    with span.attached():
+        rep = sim.run(clock=clock)
     s = rep.summary()
     st = rep.stats
     from shadow_tpu_torch.apps.base import APP_SOCKS_CLIENT
@@ -550,7 +574,7 @@ def socks10k_phase(defs):
     if s["drop_q"] != 0:
         fail(f"socks10k: event-queue drops {s['drop_q']} (engine fault)")
     print(f"  socks10k run: {json.dumps(rates(rep) | s)}", flush=True)
-    span = launches_in_span(lambda: socks10k_sim(2.3), 20, 20)
+    span = span.report()
     phase("socks10k", time.perf_counter() - t0, **rates(rep),
           stop_sim_s=SOCKS_STOP_S,
           launches_per_pass=span["launches_per_pass"],

@@ -3,73 +3,33 @@
 The reference's handlers are row-level functions under ``vmap``, and
 ``shadow_tpu/core/rowops.py`` writes a row's slot with one-hot selects
 because XLA:TPU scatters do not fuse. Here every function takes all
-rows at once: ``arr`` is ``[H, N, ...]``, ``idx`` is ``[H]`` (one slot
-per row), and access is one ``gather`` or ``scatter_`` along dim 1 —
-per-row gather and scatter are cheap on the card. Writes are in place
-and masked: a row changes only where its ``cond`` holds.
+rows at once: ``arr`` is ``[H, N, ...]`` and a :class:`Slot` holds one
+slot index per row (``idx`` ``[H]``). There is one form per access:
 
-Out-of-range slots behave as the reference's one-hot form: a read
-returns zeros and a write is dropped.
+- a read is one ``gather`` along dim 1 (``Slot.get``, ``rget``);
+- a write is one masked select over the whole ``[H, N, ...]`` array
+  against a ``[H, N]`` one-hot (``Slot.mask`` then ``mput``,
+  ``rset_where``, ``radd_where``): one launch per written array once
+  the one-hot exists, where a gather/select/scatter takes three. More
+  bytes for fewer launches: a drain pass spends more host time on
+  launches than device time on these selects.
 
-:class:`Slot` prepares one slot per row once for many reads and
-writes (the TCP machine touches dozens of socket columns at one slot):
-a read is one gather, and a write is one masked select over the whole
-``[H, N, ...]`` array against a ``[H, N]`` one-hot — a launch apiece,
-where the per-call gather/select/scatter form takes several.
+Writes are in place and masked: a row changes only where its ``cond``
+holds. Out-of-range slots behave as the reference's one-hot form: a
+read returns zeros and a write is dropped. A handler that touches
+several arrays at one slot builds its ``Slot`` once.
 """
 
 from __future__ import annotations
 
+from functools import cached_property
+
 import torch
-
-
-def _index(arr, idx):
-    """[H, 1, ...] gather/scatter index for one slot per row."""
-    i = idx.to(torch.int64).clamp(0, arr.shape[1] - 1)
-    shape = (arr.shape[0], 1) + (1,) * (arr.dim() - 2)
-    return i.view(shape).expand((arr.shape[0], 1) + tuple(arr.shape[2:]))
-
-
-def _in_range(arr, idx):
-    return (idx >= 0) & (idx < arr.shape[1])
 
 
 def _bcast(mask, like):
     """[H] mask broadcast against a [H, ...] row value."""
     return mask.view((mask.shape[0],) + (1,) * (like.dim() - 1))
-
-
-def rget(arr, idx):
-    """arr[h, idx[h]] for every row h -> [H, ...] (zeros out of range)."""
-    val = arr.gather(1, _index(arr, idx)).squeeze(1)
-    ok = _bcast(_in_range(arr, idx), val)
-    return torch.where(ok, val, False if arr.dtype == torch.bool else 0)
-
-
-def rset_where(arr, idx, cond, val):
-    """arr[h, idx[h]] = val[h] where cond[h] (in place)."""
-    ix = _index(arr, idx)
-    old = arr.gather(1, ix).squeeze(1)
-    ok = _bcast(cond & _in_range(arr, idx), old)
-    if torch.is_tensor(val):
-        val = val.to(arr.dtype)
-    new = torch.where(ok, val, old)
-    arr.scatter_(1, ix, new.unsqueeze(1))
-
-
-def radd_where(arr, idx, cond, val):
-    """arr[h, idx[h]] += val[h] where cond[h] (in place)."""
-    rset_where(arr, idx, cond, rget(arr, idx) + val)
-
-
-def col_add(arr, col: int, cond, val=1):
-    """arr[h, col] += val where cond[h] (in place; [H, N] arrays)."""
-    arr[:, col] += torch.where(cond, val, 0).to(arr.dtype)
-
-
-def set_where(arr, cond, val):
-    """arr[h] = val[h] where cond[h] (in place; [H] arrays)."""
-    arr.copy_(torch.where(cond, val, arr))
 
 
 def _trail(mask, arr):
@@ -78,14 +38,26 @@ def _trail(mask, arr):
 
 
 class Slot:
-    """One slot index per row (``idx`` [H]) into tables of width ``n``."""
+    """One slot index per row (``idx`` [H]) into tables of width ``n``.
+    Each derived index is built on first use only."""
 
     def __init__(self, idx, n: int):
         self.idx = idx
-        self.ok = (idx >= 0) & (idx < n)
-        self.ix = idx.to(torch.int64).clamp(0, n - 1).unsqueeze(1)
+        self.n = n
+
+    @cached_property
+    def ok(self):
+        return (self.idx >= 0) & (self.idx < self.n)
+
+    @cached_property
+    def ix(self):
+        return self.idx.to(torch.int64).clamp(0, self.n - 1).unsqueeze(1)
+
+    @cached_property
+    def oh(self):
         # out-of-range rows match nothing: their writes are dropped
-        self.oh = torch.arange(n, device=idx.device) == idx.unsqueeze(1)
+        return (torch.arange(self.n, device=self.idx.device)
+                == self.idx.unsqueeze(1))
 
     def get(self, arr):
         """arr[h, idx[h]] per row (zeros out of range)."""
@@ -102,7 +74,6 @@ class Slot:
         return self.oh & m.unsqueeze(1)
 
 
-
 def mput(arr, w, val):
     """arr[h, j] = val[h] where the [H, N] write mask w[h, j] holds (in
     place; `val` a python scalar, a 0-d or a per-row tensor)."""
@@ -114,3 +85,29 @@ def mput(arr, w, val):
     if val.dim() > 0:
         val = val.unsqueeze(1)
     torch.where(wb, val, arr, out=arr)
+
+
+def rget(arr, idx):
+    """arr[h, idx[h]] for every row h -> [H, ...] (zeros out of range)."""
+    return Slot(idx, arr.shape[1]).get(arr)
+
+
+def rset_where(arr, idx, cond, val):
+    """arr[h, idx[h]] = val[h] where cond[h] (in place)."""
+    mput(arr, Slot(idx, arr.shape[1]).mask(cond), val)
+
+
+def radd_where(arr, idx, cond, val):
+    """arr[h, idx[h]] += val[h] where cond[h] (in place)."""
+    sl = Slot(idx, arr.shape[1])
+    mput(arr, sl.mask(cond), sl.get(arr) + val)
+
+
+def col_add(arr, col: int, cond, val=1):
+    """arr[h, col] += val where cond[h] (in place; [H, N] arrays)."""
+    arr[:, col] += torch.where(cond, val, 0).to(arr.dtype)
+
+
+def set_where(arr, cond, val):
+    """arr[h] = val[h] where cond[h] (in place; [H] arrays)."""
+    arr.copy_(torch.where(cond, val, arr))

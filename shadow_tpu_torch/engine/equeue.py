@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.rowops import col_add, mput, rset_where, set_where
+from ..core.rowops import Slot, col_add, mput, set_where
 from ..core.simtime import SIMTIME_MAX
 from .defs import EV_NULL, ST_EQ_FULL_LOCAL
 
@@ -60,6 +60,7 @@ def q_min(st):
 def q_clear_slot(st, m, slot):
     """Free each masked row's popped slot and recompute its cached row
     minimum. Only time and kind are reset (payload bytes stay)."""
-    rset_where(st.eq_time, slot, m, SIMTIME_MAX)
-    rset_where(st.eq_kind, slot, m, EV_NULL)
+    w = Slot(slot, st.eq_time.shape[1]).mask(m)
+    mput(st.eq_time, w, SIMTIME_MAX)
+    mput(st.eq_kind, w, EV_NULL)
     set_where(st.eq_next, m, st.eq_time.min(1).values)

@@ -89,9 +89,6 @@ def check_supported(cfg: EngineConfig):
 @dataclass
 class Hosts:
     """All mutable per-host state. Every tensor has leading dim H."""
-    # not a field: False when the config can open no TCP socket, so the
-    # NIC skips its socket-table scan (every socket is UDP; none wants)
-    tcp = True
     # --- event queue (the per-host scheduler) ---
     eq_time: torch.Tensor   # [H, Q] i64, SIMTIME_MAX = free slot
     eq_seq: torch.Tensor    # [H, Q] i32 tie-break
@@ -238,7 +235,7 @@ def alloc_hosts(cfg: EngineConfig, device) -> Hosts:
     PP = max(cfg.procs_per_host, 1)
     HW = max(cfg.hostedcap, 1)
     TC = max(cfg.tracecap, 1)
-    hosts = Hosts(
+    return Hosts(
         eq_time=full((H, Q), SIMTIME_MAX, i64),
         eq_seq=full((H, Q), 0, i32),
         eq_kind=full((H, Q), 0, i32),
@@ -323,8 +320,6 @@ def alloc_hosts(cfg: EngineConfig, device) -> Hosts:
                      i64),
         cap_peaks=full((H, 4), 0, i32),
     )
-    hosts.tcp = bool(cfg.uses_tcp)
-    return hosts
 
 
 def make_shared(topo_lat_ns: np.ndarray, topo_rel: np.ndarray,

@@ -55,11 +55,6 @@ _N_CODES = N_EVENT_KINDS + N_BRANCHES * N_APP_KINDS
 _TCP_PARTS = ("udp", "rst", "accept", "conn", "data", "fin", "finack",
               "sack", "pull", "rto")
 
-# False runs every TCP sub-branch on every pass that has a TCP row (the
-# launches-per-pass baseline the split is measured against; results
-# are equal either way)
-SPLIT_TCP = True
-
 
 def _app_code(app_kind, branch):
     return N_EVENT_KINDS + N_BRANCHES * app_kind + branch
@@ -78,12 +73,12 @@ def _on_pkt(st, hp, sh, m, now, pkt, cfg: EngineConfig, parts):
     if cfg.uses_tcp:
         is_tcp = (pkt[:, P.FLAGS] & P.PROTO_MASK) == P.PROTO_TCP
         mu = md & ~is_tcp
-        if parts is None or parts & {"rst", "accept", "conn"}:
+        if parts & {"rst", "accept", "conn"}:
             slot = sock_demux(st, pkt[:, P.SRC], pkt[:, P.SPORT],
                               pkt[:, P.DPORT], P.PROTO_TCP)
             tcp.tcp_rx(st, hp, sh, md & is_tcp & (slot >= 0), now, slot,
                        pkt_in, parts)
-        if parts is not None and "udp" not in parts:
+        if "udp" not in parts:
             return
     slot = sock_demux(st, pkt[:, P.SRC], pkt[:, P.SPORT], pkt[:, P.DPORT],
                       P.PROTO_UDP)
@@ -118,19 +113,17 @@ def _tcp_features(st, kind, pkt, t):
 
 def _pass_flags(st, kind, app_kind, branch, pkt, t, cfg: EngineConfig):
     """Which codes at least one row holds this pass -> (set of codes,
-    set of TCP parts or None for all). The one host sync of the pass
-    (rows with no ready event hold EV_NULL)."""
+    set of TCP parts; empty when the config has no TCP). The one host
+    sync of the pass (rows with no ready event hold EV_NULL)."""
     code = torch.where(kind == EV_APP, _app_code(app_kind, branch), kind)
     present = torch.zeros(_N_CODES, dtype=torch.int32, device=kind.device)
     present.scatter_(0, code.to(torch.int64), 1)
-    split = cfg.uses_tcp and SPLIT_TCP
-    if split:
+    if cfg.uses_tcp:
         feats = _tcp_features(st, kind, pkt, t).any(1).to(torch.int32)
         present = torch.cat([present, feats])
     vals = present.tolist()
     codes = {i for i, v in enumerate(vals[:_N_CODES]) if v}
-    parts = ({n for n, v in zip(_TCP_PARTS, vals[_N_CODES:]) if v}
-             if split else None)
+    parts = {n for n, v in zip(_TCP_PARTS, vals[_N_CODES:]) if v}
     return codes, parts
 
 
@@ -158,10 +151,10 @@ def step_all_hosts(st, hp, sh, wend: int, cfg: EngineConfig) -> bool:
         _on_pkt(st, hp, sh, kind == EV_PKT, t, pkt, cfg, parts)
     if EV_NIC_TX in flags:
         nic.on_tx(st, hp, sh, kind == EV_NIC_TX, t, wend, cfg.qdisc,
-                  pull_tcp=parts is None or "pull" in parts)
+                  tcp=cfg.uses_tcp, pull_tcp="pull" in parts)
     if cfg.uses_tcp and EV_TCP_TIMER in flags:
         tcp.on_tcp_timer(st, hp, sh, kind == EV_TCP_TIMER, t, wend, pkt,
-                         expired=parts is None or "rto" in parts)
+                         expired="rto" in parts)
     if cfg.uses_tcp and EV_TCP_CLOSE in flags:
         tcp.on_tcp_close(st, hp, sh, kind == EV_TCP_CLOSE, t, wend, pkt)
 
@@ -169,14 +162,15 @@ def step_all_hosts(st, hp, sh, wend: int, cfg: EngineConfig) -> bool:
     # executing the queue head early is what the next pass would do.
     slot2, t2 = equeue.q_min(st)
     due = ready & (t2 == t) & (rget(st.eq_kind, slot2) == EV_NIC_TX)
-    if cfg.uses_tcp and SPLIT_TCP:
+    if cfg.uses_tcp:
         pull2 = due & (st.txq_cnt == 0) & (st.ob_cnt < st.ob_time.shape[1])
         any_due, pull = torch.stack([due.any(), pull2.any()]).tolist()
     else:
-        any_due, pull = bool(due.any()), True      # host sync
+        any_due, pull = bool(due.any()), False     # host sync
     if any_due:
         equeue.q_clear_slot(st, due, slot2)
-        nic.on_tx(st, hp, sh, due, t, wend, cfg.qdisc, pull_tcp=pull)
+        nic.on_tx(st, hp, sh, due, t, wend, cfg.qdisc, tcp=cfg.uses_tcp,
+                  pull_tcp=pull)
     st.stats[:, ST_EVENTS] += ready.to(torch.int64) + due.to(torch.int64)
     return True
 

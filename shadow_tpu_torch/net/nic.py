@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.rowops import col_add, rget, rset_where, set_where
+from ..core.rowops import Slot, col_add, mput, rget, rset_where, set_where
 from ..core.simtime import SIMTIME_ONE_SECOND
 from ..engine import equeue
 from ..engine.defs import (EV_NIC_TX, EV_PKT, ST_OUTBOX_DROP,
@@ -44,11 +44,11 @@ def tx_want(st):
     return st.sk_used & ((st.sk_ctl != 0) | tcp_want_tx(st))
 
 
-def has_work(st):
+def has_work(st, tcp=True):
     """[H] bool: the ring or a TCP socket owes the wire a packet (no
-    socket scan when the state can hold no TCP socket, ``st.tcp``)."""
+    socket scan with `tcp` False: the config opens no TCP socket)."""
     ring = st.txq_cnt > 0
-    return ring | tx_want(st).any(1) if st.tcp else ring
+    return ring | tx_want(st).any(1) if tcp else ring
 
 
 def txq_push(st, m, pkt):
@@ -82,9 +82,9 @@ def emit(st, hp, m, now, pkt):
     O = st.ob_time.shape[1]
     cnt = st.ob_cnt
     ok = cnt < O
-    slot = cnt.clamp(max=O - 1)
-    rset_where(st.ob_pkt, slot, mr & ok, rp)
-    rset_where(st.ob_time, slot, mr & ok, now)
+    w = Slot(cnt.clamp(max=O - 1), O).mask(mr & ok)
+    mput(st.ob_pkt, w, rp)
+    mput(st.ob_time, w, now)
     st.ob_cnt += (mr & ok).to(torch.int32)
     col_add(st.stats, ST_OUTBOX_DROP, mr & ~ok)
 
@@ -92,21 +92,23 @@ def emit(st, hp, m, now, pkt):
     st.pkt_ctr += m.to(torch.int32)
 
 
-def kick(st, m, now):
+def kick(st, m, now, tcp=True):
     """Ensure an EV_NIC_TX is pending on each masked row whose NIC has
-    work. nic_sched is set only if the push landed: a full queue must
-    leave the NIC kickable."""
-    need = m & has_work(st) & ~st.nic_sched
+    work (`tcp` as in has_work). nic_sched is set only if the push
+    landed: a full queue must leave the NIC kickable."""
+    need = m & has_work(st, tcp) & ~st.nic_sched
     ok = equeue.q_has_free(st)
     equeue.q_push(st, need, torch.maximum(now, st.nic_busy), EV_NIC_TX, None)
     set_where(st.nic_sched, need, ok)
 
 
-def on_tx(st, hp, sh, m, now, wend, qdisc=QDISC_RR, pull_tcp=True):
+def on_tx(st, hp, sh, m, now, wend, qdisc=QDISC_RR, tcp=True,
+          pull_tcp=True):
     """EV_NIC_TX handler: pull one packet and emit it, or — with the
     outbox (this window's emit budget) full — retry at the window
-    boundary instead of dropping. `pull_tcp` False skips the TCP pull
-    (the caller knows no masked row can reach it)."""
+    boundary instead of dropping. `tcp` False: the config opens no TCP
+    socket (no socket scan); `pull_tcp` False skips the TCP pull (the
+    caller knows no masked row can reach it)."""
     set_where(st.nic_sched, m, False)
     no_room = st.ob_cnt >= st.ob_time.shape[1]
 
@@ -115,10 +117,10 @@ def on_tx(st, hp, sh, m, now, wend, qdisc=QDISC_RR, pull_tcp=True):
     equeue.q_push(st, md, (now + 1).clamp(min=wend), EV_NIC_TX, None)
     set_where(st.nic_sched, md, ok)
 
-    _tx_pull(st, hp, sh, m & ~no_room, now, qdisc, pull_tcp)
+    _tx_pull(st, hp, sh, m & ~no_room, now, qdisc, tcp, tcp and pull_tcp)
 
 
-def _tx_pull(st, hp, sh, m, now, qdisc=QDISC_RR, pull_tcp=True):
+def _tx_pull(st, hp, sh, m, now, qdisc, tcp, pull_tcp):
     """Pull one packet — the transmit ring first, else the qdisc's pick
     among wanting TCP sockets — emit it, account bandwidth, and
     reschedule while work remains."""
@@ -130,7 +132,7 @@ def _tx_pull(st, hp, sh, m, now, qdisc=QDISC_RR, pull_tcp=True):
     has_pkt = ring
 
     mt = m & ~ring
-    if st.tcp and pull_tcp:
+    if pull_tcp:
         want = tx_want(st)
         S = want.shape[1]
         ar = torch.arange(S, device=want.device)
@@ -156,7 +158,7 @@ def _tx_pull(st, hp, sh, m, now, qdisc=QDISC_RR, pull_tcp=True):
 
     # keep draining while work remains — only after progress, or a
     # reschedule at busy_end == now would spin on one timestamp
-    more = has_work(st) & has_pkt
+    more = has_work(st, tcp) & has_pkt
     ok = equeue.q_has_free(st)
     equeue.q_push(st, more, busy_end, EV_NIC_TX, None)
     set_where(st.nic_sched, more, ok)

@@ -378,16 +378,16 @@ def _accept_syn(st, hp, sh, m, now, lslot, pkt):
     col_add(st.stats, ST_SOCK_FAIL, m & ~ok)
 
 
-def _rx_conn(st, hp, sh, m, now, slot, pkt, parts=None):
+def _rx_conn(st, hp, sh, m, now, slot, pkt, parts):
     """Segment processing for a non-listening socket: establishment,
     ACK processing with SACK and congestion control, data with the
     out-of-order scoreboard, peer FIN, TIME_WAIT/close bookkeeping.
 
-    `parts` (a set of "data", "fin", "sack" or None for all) names the
+    `parts` (a set of "data", "fin", "finack", "sack") names the
     sub-branches some masked row can take; the caller derives it from
     the packet words, and a branch no row can take is skipped (its
     every write would be a no-op)."""
-    run = (lambda _name: True) if parts is None else parts.__contains__
+    run = parts.__contains__
     sl = _sl(st, slot)
     flags = pkt[:, P.FLAGS]
     syn = (flags & P.F_SYN) != 0
@@ -596,13 +596,13 @@ def rx_parts(pkt):
     return {"data": data, "fin": fin, "finack": finack, "sack": blocks}
 
 
-def tcp_rx(st, hp, sh, m, now, slot, pkt, parts=None):
+def tcp_rx(st, hp, sh, m, now, slot, pkt, parts):
     """Inbound TCP segment for each masked row's socket `slot`: RST
     teardown, listener SYN -> child, else the connection machine; then
-    kick the NIC. `parts`, when given, is the set of code names
-    ("rst", "accept", "conn", and _rx_conn's parts) some masked row
-    needs; the others are skipped."""
-    run = (lambda _name: True) if parts is None else parts.__contains__
+    kick the NIC. `parts` is the set of code names ("rst", "accept",
+    "conn", and _rx_conn's parts) some masked row needs; the others
+    are skipped."""
+    run = parts.__contains__
     flags = pkt[:, P.FLAGS]
     syn = (flags & P.F_SYN) != 0
     ackf = (flags & P.F_ACK) != 0
@@ -618,14 +618,13 @@ def tcp_rx(st, hp, sh, m, now, slot, pkt, parts=None):
     if run("accept"):
         _accept_syn(st, hp, sh, m & ~rst & listen_syn, now, sl, pkt)
     if run("conn"):
-        _rx_conn(st, hp, sh, m & ~rst & ~listen_syn, now, sl, pkt,
-                 None if parts is None else parts)
+        _rx_conn(st, hp, sh, m & ~rst & ~listen_syn, now, sl, pkt, parts)
     nic.kick(st, m, now)
 
 
 # --- Timers ----------------------------------------------------------------
 
-def on_tcp_timer(st, hp, sh, m, now, wend, ev, expired=True):
+def on_tcp_timer(st, hp, sh, m, now, wend, ev, expired):
     """EV_TCP_TIMER: RFC 6298 retransmission timeout with deadline
     re-chaining (one outstanding event per socket). `expired` False
     skips the timeout branch (the caller knows no row is due)."""

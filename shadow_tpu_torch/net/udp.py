@@ -38,7 +38,8 @@ def udp_sendto(st, hp, m, now, slot, dst_host, dst_port, nbytes, aux=0):
                  status=P.DS_CREATED)
     radd_where(st.sk_snd_end, slot, m, length.to(torch.int64))
     nic.txq_push(st, m, pkt)
-    nic.kick(st, m, now)
+    # every masked row's ring now holds a packet: no socket scan needed
+    nic.kick(st, m, now, tcp=False)
 
 
 def udp_deliver(st, hp, sh, m, now, slot, pkt):

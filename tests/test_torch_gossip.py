@@ -5,7 +5,7 @@ give equal stats, windows and every canonicalized Hosts field."""
 
 from test_differential import CFG
 from test_gossip import gossip_scenario
-from test_torch_parity import run_both
+from test_torch_parity import one_torch_thread, run_both  # noqa: F401
 
 
 def test_gossip_matches_reference():

@@ -13,6 +13,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from shadow_tpu.apps.compile import auto_caps as ref_auto_caps
 from shadow_tpu.apps.compile import peak_sockets as ref_peak_sockets
@@ -32,6 +33,19 @@ from shadow_tpu_torch.routing.topology import build_topology
 from test_phold import phold_scenario
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Single-threaded torch ops in every whole-run parity file (which
+    imports this fixture): the suite runs the files on parallel
+    workers, and the port's CPU runs otherwise spread small ops over
+    every core (phold's parity took 4.5 CPU-min in 1.3 min of wall
+    with the default pool, 1 CPU-min in 0.9 min with one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def shadow_configs():

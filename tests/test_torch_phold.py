@@ -8,7 +8,7 @@ from shadow_tpu.core.config import HostSpec, ProcessSpec, Scenario
 
 from test_differential import CFG, LOSSY_TOPO
 from test_phold import MESH_TOPO, phold_scenario
-from test_torch_parity import run_both
+from test_torch_parity import one_torch_thread, run_both  # noqa: F401
 
 
 def test_phold_matches_reference():

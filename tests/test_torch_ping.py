@@ -9,7 +9,7 @@ from shadow_tpu.core.config import load_xml as ref_load_xml
 
 from shadow_tpu_torch.core.config import load_xml
 
-from test_torch_parity import ROOT, run_both
+from test_torch_parity import ROOT, one_torch_thread, run_both  # noqa: F401
 
 
 def test_ping_example_matches_reference():

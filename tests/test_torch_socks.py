@@ -8,21 +8,10 @@ the CPU: equal stats, window count and every canonicalized ``Hosts``
 field. One EngineConfig shape for both cases.
 """
 
-import pytest
-import torch
-
 from shadow_tpu.engine import defs
 
 from test_differential import SOCKS_CFG, _socks_scen
-from test_torch_parity import run_both
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from test_torch_parity import one_torch_thread, run_both  # noqa: F401
 
 
 def test_socks_one_hop_matches():

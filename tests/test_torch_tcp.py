@@ -21,15 +21,8 @@ from shadow_tpu.net import congestion as RCC
 
 from shadow_tpu_torch.engine.sim import Simulation
 from test_differential import CFG, _bulk_scen
-from test_torch_parity import run_both
+from test_torch_parity import one_torch_thread, run_both  # noqa: F401
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_bulk_lossless_matches():
@@ -150,7 +143,7 @@ def test_tcp_scenarios_build():
     for mk in (_bulk_scen(loss=0.0, size=1000, count=1),
                _socks_scen(hops=1)):
         sim = Simulation(mk(), device="cpu")
-        assert sim.cfg.uses_tcp and sim.hosts.tcp
+        assert sim.cfg.uses_tcp
 
 
 def test_socks_builders_match_tools():
