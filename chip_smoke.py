@@ -7,27 +7,51 @@ checks each phase; any failed check raises and the script exits
 non-zero. Phases:
 
 1. device   — the card (nvidia-smi name and power limit), torch/CUDA.
-2. log1p    — log1p_f32 over all 2^24 uniforms: cuda bits == cpu bits.
-3. ping     — examples/ping.xml through the CLI: mean RTT exactly 50 ms.
-4. phold    — phold-4096, 5 sim-s (bench.py's shape): messages conserved.
-5. gossip   — examples/gossip-100k.xml, 100,000 hosts, 30 sim-s, with the
+
+The timed phases run first, each alone on the card and the host:
+
+2. ping     — examples/ping.xml through the CLI: mean RTT exactly 50 ms.
+3. phold    — phold-4096, 5 sim-s (bench.py's shape): messages conserved.
+4. gossip   — examples/gossip-100k.xml, 100,000 hosts, 30 sim-s, with the
               caps from its own comment: >= 99.9% of hosts saw every
               mined block.
-6. gpu=cpu  — lossy phold-256 and gossip-1000 on cuda and on cpu: equal
-              stats and equal Hosts fields.
-7. cbrt     — the congestion control's float32 cbrt over 2^24 inputs
-              spread over every binade from 2^-20 to 2^20, plus 0 and
-              the special values: cuda bits == cpu bits.
-8. socks10k — 10,000 hosts (1,000 bulkservers, 1,000 socksproxies,
+5. socks10k — 10,000 hosts (1,000 bulkservers, 1,000 socksproxies,
               8,000 socksclients fetching 48 KiB through one relay) on
               the ER-300 stand-in topology, runahead 10 ms, through
               Simulation: clients complete fetches, no host's socket
               table overflows; launches per pass and the device's busy
               share from a span of the run's passes (``PassSpan``).
-9. tcp gpu=cpu — lossy bulk and multihop lossy SOCKS on cuda and on
+6. tgen-1k  — 1,000 tgen hosts (200 servers, 600 web clients fetching
+              100 KiB, 200 bulk clients putting 1 MiB; ``bench.py``'s
+              tgen-1k-tcp shape) on the ER-300 stand-in, runahead 10 ms,
+              through Simulation: GETs and PUTs complete, no walk branch
+              is lost, no socket table or event queue overflows; launches
+              per pass and the busy share from a span of its passes.
+
+The checks that time nothing run after them, beside phase 7 in a second
+process:
+
+7. cli-tgen — examples/tgen-web-bulk.xml through ``python -m
+              shadow_tpu_torch`` on the card: every web host completes
+              its 10 GETs and every bulk host its 5.
+8. log1p    — log1p_f32 over all 2^24 uniforms: cuda bits == cpu bits.
+9. gpu=cpu  — lossy phold-256 and gossip-1000 on cuda and on cpu: equal
+              stats and equal Hosts fields.
+10. cbrt    — the congestion control's float32 cbrt over 2^24 inputs
+              spread over every binade from 2^-20 to 2^20, plus 0 and
+              the special values: cuda bits == cpu bits.
+11. tcp-gpu=cpu — lossy bulk and multihop lossy SOCKS on cuda and on
               cpu: equal stats and equal Hosts fields.
-10. cli-tcp — the same bulk and SOCKS scenarios as XML through
+12. cli-tcp — the same bulk and SOCKS scenarios as XML through
               ``python -m shadow_tpu_torch --runahead 10ms`` on the card.
+13. tgen-gpu=cpu — tgen shapes (lossy web walk, fork/synchronize, a
+              host running a tgen server beside a bulk client, tgen-1k
+              at 50 hosts) on cuda and on cpu: equal stats, windows and
+              Hosts fields.
+
+``--phases tgen-1k-cpu`` (never part of the default run) holds tgen-1k
+itself, all 1,000 hosts to 2.25 sim-s, on cuda against cpu: equal
+stats, windows and Hosts fields.
 
 ``python3 chip_smoke.py --profile`` instead measures where the wall
 goes in phold-4096 and gossip-100k: a per-phase wall split (drain,
@@ -52,6 +76,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -257,25 +282,31 @@ def cbrt_inputs():
 
 class PassSpan:
     """Kernel launches and device time over `passes` drain passes from
-    the start of window `first_window` of the run whose ``clock`` it
-    is. The run copies its state where the span starts and goes on
+    the start of a window of the run whose ``clock`` it is: the first
+    window from `first_window` on whose drain runs at least `passes`
+    passes. The run copies its state where the span starts and goes on
     unprofiled; after it, ``report`` replays the span's passes from
-    that copy twice: timed without the profiler, then under
-    ``torch.profiler`` (CUDA activity). The passes are the run's own
-    (the drain is deterministic), the run's wall carries only the
-    copy, and the busy share is the profiled kernel time over the
-    unprofiled wall: the profiler roughly doubles a pass's host time.
-    Few passes: the profiler's post-processing costs minutes per 10^6
-    events."""
+    that copy three times: timed without the profiler, under
+    ``torch.profiler`` (CUDA activity), and timed without it again.
+    The passes are the run's own (the drain is deterministic), the
+    run's wall carries only the copy, and the busy share is the
+    profiled kernel time over the faster unprofiled wall: the profiler
+    adds host time to a pass. Few passes: the profiler's
+    post-processing costs minutes per 10^6 events."""
 
     def __init__(self, first_window, passes):
         self.first, self.passes = first_window, passes
         self.w = 0
         self.snap = None
+        self.snap_w = None      # window of the copy, its passes so far
+        self.n = 0
+        self.found = False
         self.cost = 0.0
 
     def clock(self, label):
         if label == "advance":
+            self.found = self.found or (self.snap is not None
+                                        and self.n >= self.passes)
             self.w += 1
 
     @contextlib.contextmanager
@@ -289,13 +320,17 @@ class PassSpan:
             W.step_all_hosts = inner
 
     def _step(self, inner, st, *rest):
-        if self.snap is None and self.w == self.first - 1:
+        if (not self.found and self.w >= self.first - 1
+                and self.snap_w != self.w):
             t0 = time.perf_counter()
             self.snap = (type(st), {k: v.clone() for k, v in
                                     vars(st).items()}, rest)
+            self.snap_w, self.n = self.w, 0
             torch.cuda.synchronize()
-            self.cost = time.perf_counter() - t0
-        return inner(st, *rest)
+            self.cost += time.perf_counter() - t0
+        ran = inner(st, *rest)
+        self.n += ran
+        return ran
 
     def _replay(self):
         """Run the span's passes on a fresh copy -> (passes, wall s)."""
@@ -304,8 +339,9 @@ class PassSpan:
         n = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        while n < self.passes and self.inner(st, *rest):
-            n += 1
+        with torch.inference_mode():        # as run_windows runs
+            while n < self.passes and self.inner(st, *rest):
+                n += 1
         torch.cuda.synchronize()
         return n, time.perf_counter() - t0
 
@@ -319,9 +355,10 @@ class PassSpan:
         prof.start()
         n, prof_wall = self._replay()
         prof.stop()
+        n_again, again_wall = self._replay()
         self.snap = None
-        if not n or n != n_plain:
-            fail(f"span replays ran {n_plain} and {n} passes")
+        if not n or not n == n_plain == n_again:
+            fail(f"span replays ran {n_plain}, {n} and {n_again} passes")
         launches, kern_us = 0, 0.0
         raw = getattr(prof.profiler, "kineto_results", None)
         for e in (raw.events() if raw is not None else ()):
@@ -337,13 +374,96 @@ class PassSpan:
                 if dev and str(getattr(e, "device_type", "")).endswith(
                         "CUDA"):
                     kern_us += dev
-        return {"window": self.first, "passes": n, "launches": launches,
+        return {"window": self.snap_w + 1, "passes": n, "launches": launches,
                 "launches_per_pass": round(launches / n, 1),
                 "device_kernel_ms": round(kern_us / 1e3, 3),
                 "drain_wall_ms": round(plain_wall * 1e3, 3),
                 "profiled_drain_wall_ms": round(prof_wall * 1e3, 3),
-                "device_busy_share": round(kern_us / 1e6 / plain_wall, 4),
+                "drain_wall_again_ms": round(again_wall * 1e3, 3),
+                "device_busy_share": round(
+                    kern_us / 1e6 / min(plain_wall, again_wall), 4),
                 "state_copy_s": round(self.cost, 3)}
+
+
+# tgen-1k stop time (sim-s; clients start at 2 s; bench.py runs 10):
+# the phase is kept under ~300 s. 2.5 sim-s (11,708 passes) took 256.2 s
+# on the card, 4 sim-s (28,341 passes) 547.0 s
+TGEN_STOP_S = 2.5
+
+
+def two_poi_topology(loss=0.0):
+    """tests/conftest.py's simple topology: two vertices, 20 ms
+    self-loops, a 50 ms link between them; `loss` on every edge."""
+    edges = "".join(
+        f'<edge source="poi-{a}" target="poi-{b}"><data key="d7">{lat}'
+        f'</data><data key="d9">{loss}</data></edge>'
+        for a, b, lat in ((1, 1, 20.0), (1, 2, 50.0), (2, 2, 20.0)))
+    nodes = "".join(
+        f'<node id="poi-{i}"><data key="d0">0.0</data><data key="d3">2048'
+        f'</data><data key="d4">1024</data></node>' for i in (1, 2))
+    return f"""<graphml xmlns="http://graphml.graphdrawing.org/xmlns">
+  <key attr.name="packetloss" attr.type="double" for="edge" id="d9"/>
+  <key attr.name="latency" attr.type="double" for="edge" id="d7"/>
+  <key attr.name="bandwidthup" attr.type="int" for="node" id="d4"/>
+  <key attr.name="bandwidthdown" attr.type="int" for="node" id="d3"/>
+  <key attr.name="packetloss" attr.type="double" for="node" id="d0"/>
+  <graph edgedefault="undirected">{nodes}{edges}</graph></graphml>"""
+
+
+def fork_graph():
+    """tests/test_tgen.py's fork client: two parallel GETs joined by
+    synchronize, 2 rounds."""
+    from shadow_tpu_torch.baseline_configs import _TGEN_KEYS
+    return (
+        '<graphml xmlns="http://graphml.graphdrawing.org/xmlns">'
+        f'{_TGEN_KEYS}<graph edgedefault="directed">'
+        '<node id="start"><data key="d0">server1:30080,server2:30080</data>'
+        '</node><node id="transfer1"><data key="d4">get</data>'
+        '<data key="d5">10 KiB</data></node>'
+        '<node id="transfer2"><data key="d4">get</data>'
+        '<data key="d5">20 KiB</data></node>'
+        '<node id="synchronize"/><node id="end"><data key="d6">4</data></node>'
+        '<edge source="start" target="transfer1"/>'
+        '<edge source="start" target="transfer2"/>'
+        '<edge source="transfer1" target="synchronize"/>'
+        '<edge source="transfer2" target="synchronize"/>'
+        '<edge source="synchronize" target="end"/>'
+        '<edge source="end" target="start"/></graph></graphml>')
+
+
+SERVER_GRAPH = os.path.join(HERE, "examples", "tgen.server.graphml.xml")
+
+
+def tgen_scenario(client_graph, n_servers, n_clients, stop, loss=0.0):
+    """tgen servers named server1.. and tgen clients walking
+    `client_graph` on the two-vertex topology."""
+    from shadow_tpu_torch.core.config import HostSpec, ProcessSpec, Scenario
+    return Scenario(
+        stop_time=stop * 10**9, topology_graphml=two_poi_topology(loss),
+        hosts=[
+            HostSpec(id="server", quantity=n_servers, processes=[
+                ProcessSpec(plugin="tgen", start_time=10**9,
+                            arguments=SERVER_GRAPH)]),
+            HostSpec(id="client", quantity=n_clients, processes=[
+                ProcessSpec(plugin="tgen", start_time=2 * 10**9,
+                            arguments=client_graph)])])
+
+
+def combo_scenario():
+    """tests/test_multiproc.py's tgen server + bulk client host."""
+    from shadow_tpu_torch.core.config import HostSpec, ProcessSpec, Scenario
+    return Scenario(
+        stop_time=40 * 10**9, topology_graphml=poi_topology(),
+        hosts=[
+            HostSpec(id="combo", processes=[
+                ProcessSpec(plugin="tgen", start_time=10**9,
+                            arguments=SERVER_GRAPH),
+                ProcessSpec(plugin="bulk", start_time=2 * 10**9,
+                            arguments="peer=peer port=80 size=40000 "
+                                      "count=1 pause=1s")]),
+            HostSpec(id="peer", processes=[
+                ProcessSpec(plugin="bulkserver", start_time=10**9,
+                            arguments="port=80")])])
 
 
 def socks10k_sim():
@@ -397,11 +517,7 @@ def main():
     def want(name):
         return only is None or name in only
 
-    # 2. log1p_f32: the card gives the CPU's bits
-    if want("log1p"):
-        log1p_phase(R)
-
-    # 3.-9.
+    # 2.-6. the timed phases, alone on the card
     from shadow_tpu_torch.__main__ import main as cli
     if want("ping"):
         ping_phase(cli)
@@ -409,16 +525,35 @@ def main():
         phold_phase()
     if want("gossip-100k"):
         gossip_phase()
-    if want("gpu=cpu"):
-        udp_gpu_cpu_phase(canonicalize_state)
-    if want("cbrt"):
-        cbrt_phase()
     if want("socks10k"):
         socks10k_phase(defs)
-    if want("tcp-gpu=cpu"):
-        tcp_gpu_cpu_phase(canonicalize_state)
-    if want("cli-tcp"):
-        cli_tcp_phase(cli)
+    if want("tgen-1k"):
+        tgen1k_phase(defs)
+    if only and "tgen-1k-cpu" in only:
+        tgen1k_cpu_phase(canonicalize_state)
+
+    # 7. in a second process on the same card, beside 8.-13.: its passes
+    # are host-bound, and the card serves two such processes at the
+    # speed of one (PERF.md §6)
+    tgen_cli = CliTgen() if want("cli-tgen") else None
+    try:
+        if want("log1p"):
+            log1p_phase(R)
+        if want("gpu=cpu"):
+            udp_gpu_cpu_phase(canonicalize_state)
+        if want("cbrt"):
+            cbrt_phase()
+        if want("tcp-gpu=cpu"):
+            tcp_gpu_cpu_phase(canonicalize_state)
+        if want("cli-tcp"):
+            cli_tcp_phase(cli)
+        if want("tgen-gpu=cpu"):
+            tgen_gpu_cpu_phase(canonicalize_state)
+        if tgen_cli:
+            tgen_cli.finish()
+    finally:
+        if tgen_cli:
+            tgen_cli.stop()
 
     print(f"total wall {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": []}))
@@ -443,7 +578,7 @@ def log1p_phase(R):
 
 
 def ping_phase(cli):
-    """3. ping through the CLI entry point: mean RTT exactly 50 ms."""
+    """2. ping through the CLI entry point: mean RTT exactly 50 ms."""
     t0 = time.perf_counter()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -458,7 +593,7 @@ def ping_phase(cli):
 
 
 def phold_phase():
-    """4. phold-4096, bench.py's shape, 5 sim-s."""
+    """3. phold-4096, bench.py's shape, 5 sim-s."""
     from shadow_tpu_torch.engine import defs
     t0 = time.perf_counter()
     _, rep = run(phold_scenario(4096, 5), phold_cfg(4096), "cuda")
@@ -473,7 +608,7 @@ def phold_phase():
 
 
 def gossip_phase():
-    """5. gossip-100k as written, full 30 sim-s."""
+    """4. gossip-100k as written, full 30 sim-s."""
     from shadow_tpu_torch.engine import defs
     t0 = time.perf_counter()
     gsim, rep = run(gossip_scenario(100_000), gossip_cfg(100_000), "cuda")
@@ -488,13 +623,18 @@ def gossip_phase():
           mean_prop_delay_us=round(s["mean_rtt_us"], 1))
 
 
+def arrays(sim, rep):
+    """A finished run -> (stats, Hosts arrays)."""
+    return rep.stats, sim.final_hosts.numpy()
+
+
 def _same_on_both(name, grun, crun, canonicalize_state):
-    """Fail unless two finished runs (cuda, cpu) agree on stats and on
-    every canonicalized Hosts field -> the raw-differing field names."""
-    (g, grep), (c, crep) = grun, crun
-    if not (grep.stats == crep.stats).all():
+    """Fail unless two finished runs (cuda, cpu), each (stats, Hosts
+    arrays), agree on stats and on every canonicalized Hosts field ->
+    the raw-differing field names."""
+    (gst, ga), (cst, ca) = grun, crun
+    if not (gst == cst).all():
         fail(f"{name}: stats differ between cuda and cpu")
-    ga, ca = g.final_hosts.numpy(), c.final_hosts.numpy()
     raw = [f for f in ga if not (ga[f] == ca[f]).all()]
     ga, ca = canonicalize_state(ga), canonicalize_state(ca)
     bad = [f for f in ga if ga[f].dtype != ca[f].dtype
@@ -505,7 +645,7 @@ def _same_on_both(name, grun, crun, canonicalize_state):
 
 
 def udp_gpu_cpu_phase(canonicalize_state):
-    """6. the card and the CPU agree bit for bit."""
+    """9. the card and the CPU agree bit for bit."""
     t0 = time.perf_counter()
     for name, mk, cfg in (
             ("phold-256-lossy", lambda: phold_scenario(256, 5, loss=0.02,
@@ -515,7 +655,8 @@ def udp_gpu_cpu_phase(canonicalize_state):
              gossip_cfg(1000))):
         g, grep = run(mk(), cfg, "cuda")
         c, crep = run(mk(), cfg, "cpu")
-        raw = _same_on_both(name, (g, grep), (c, crep), canonicalize_state)
+        raw = _same_on_both(name, arrays(g, grep), arrays(c, crep),
+                            canonicalize_state)
         if name.startswith("phold") and not grep.summary()["drop_net"]:
             fail(f"{name}: no packet was lost on the lossy edge")
         print(f"  {name}: events={grep.events} cuda_wall="
@@ -525,7 +666,7 @@ def udp_gpu_cpu_phase(canonicalize_state):
 
 
 def cbrt_phase():
-    """7. the float32 cbrt of the cubic: the card gives the CPU's bits."""
+    """10. the float32 cbrt of the cubic: the card gives the CPU's bits."""
     from shadow_tpu_torch.net.congestion import cbrt_f32
     t0 = time.perf_counter()
     x = cbrt_inputs()
@@ -542,7 +683,7 @@ def cbrt_phase():
 
 
 def socks10k_phase(defs):
-    """8. socks10k through Simulation on the card."""
+    """5. socks10k through Simulation on the card."""
     t0 = time.perf_counter()
     sim = socks10k_sim()
     seen = [0]
@@ -590,7 +731,7 @@ def socks10k_phase(defs):
 
 
 def tcp_gpu_cpu_phase(canonicalize_state):
-    """9. TCP on the card and on the CPU, bit for bit."""
+    """11. TCP on the card and on the CPU, bit for bit."""
     from shadow_tpu_torch.engine.state import EngineConfig
     t0 = time.perf_counter()
     for name, mk, caps in (
@@ -603,7 +744,8 @@ def tcp_gpu_cpu_phase(canonicalize_state):
         n = mk().total_hosts()
         g = run(mk(), EngineConfig(num_hosts=n, **caps), "cuda")
         c = run(mk(), EngineConfig(num_hosts=n, **caps), "cpu")
-        raw = _same_on_both(name, g, c, canonicalize_state)
+        raw = _same_on_both(name, arrays(*g), arrays(*c),
+                            canonicalize_state)
         s = g[1].summary()
         if not s["retransmits"] or not s["transfers_done"]:
             fail(f"{name}: no loss recovery or no transfer: {s}")
@@ -616,7 +758,7 @@ def tcp_gpu_cpu_phase(canonicalize_state):
 
 
 def cli_tcp_phase(cli):
-    """10. bulk and SOCKS XML through the CLI, on the card by default."""
+    """12. bulk and SOCKS XML through the CLI, on the card by default."""
     import tempfile
     t0 = time.perf_counter()
     out = {}
@@ -635,6 +777,208 @@ def cli_tcp_phase(cli):
             out[name] = (s["events"], s["transfers_done"], s["windows"])
     phase("cli-tcp", time.perf_counter() - t0,
           **{f"{k}_events_xfers_windows": v for k, v in out.items()})
+
+
+def tgen1k_phase(defs):
+    """6. tgen-1k through Simulation on the card."""
+    from shadow_tpu_torch.baseline_configs import bulk1k
+    t0 = time.perf_counter()
+    sim = bulk1k(1000, stop=TGEN_STOP_S, device="cuda", runahead_ms=10)
+    span = PassSpan(50, 20)
+    with span.attached():
+        rep = sim.run(clock=span.clock)
+    s = rep.summary()
+    st = rep.stats
+    kind = {k: np.array([n.startswith(k) for n in sim.host_names])
+            for k in ("server", "web", "bulk")}
+    xfer = st[:, defs.ST_XFER_DONE]
+    gets, puts = int(xfer[kind["web"]].sum()), int(xfer[kind["bulk"]].sum())
+    out = dict(
+        rates(rep), events_per_pass=round(s["events"] / max(s["passes"], 1),
+                                          3),
+        stop_sim_s=TGEN_STOP_S, gets_done=gets, puts_done=puts,
+        puts_received=int(xfer[kind["server"]].sum()),
+        web_done_share=round(float((xfer[kind["web"]] > 0).mean()), 6),
+        bulk_done_share=round(float((xfer[kind["bulk"]] > 0).mean()), 6),
+        tgen_drop=int(st[:, defs.ST_TGEN_DROP].sum()),
+        tgen_abort=int(st[:, defs.ST_TGEN_ABORT].sum()),
+        drop_q=s["drop_q"], sock_fail=int(st[:, defs.ST_SOCK_FAIL].sum()),
+        retransmits=s["retransmits"], drop_buf=s["drop_buf"],
+        defer_fanin=s["defer_fanin"])
+    print(f"  tgen-1k run: {json.dumps(out)}", flush=True)
+    if out["drop_q"] or out["sock_fail"] or out["tgen_drop"]:
+        fail(f"tgen-1k: event-queue drops, socket-table failures or lost "
+             f"walk branches: {out}")
+    if not (gets and puts):
+        fail(f"tgen-1k: GETs or PUTs never completed: {out}")
+    span = span.report()
+    phase("tgen-1k", time.perf_counter() - t0, **out,
+          launches_per_pass=span["launches_per_pass"],
+          span=json.dumps(span, separators=(",", ":")))
+
+
+# tgen-gpu=cpu's shapes (the default run) and tgen-1k-cpu's
+TGEN_GPU_CPU = ("tgen-web-lossy", "tgen-fork-sync", "tgen-server+bulk",
+                "tgen-1k-at-50")
+
+
+def _tgen_shapes():
+    """name -> (scenario maker, engine config of the host count or None
+    for the automatic one, runahead ms)."""
+    from shadow_tpu_torch.baseline_configs import (_tgen_client_graph,
+                                                   build_bulk_1k,
+                                                   socks_caps)
+    from shadow_tpu_torch.engine.state import EngineConfig
+
+    def caps(**kw):
+        return lambda n: EngineConfig(num_hosts=n, **kw)
+
+    # tests/test_tgen.py's web client: GET 50 KiB, pause 1 or 2 s, 3 rounds
+    web = _tgen_client_graph("server1:30080,server2:30080", "get", "50 KiB",
+                             "1,2", 3)
+    return {
+        # tests/test_differential.py::test_differential_tgen_web
+        "tgen-web-lossy": (lambda: tgen_scenario(web, 2, 2, 40, 0.03),
+                           caps(qcap=24, scap=6, obcap=12, incap=16,
+                                txqcap=8, chunk_windows=8), 0),
+        # tests/test_tgen.py::test_tgen_fork_and_synchronize
+        "tgen-fork-sync": (lambda: tgen_scenario(fork_graph(), 2, 2, 60),
+                           lambda n: None, 0),
+        # tests/test_multiproc.py::test_tgen_server_plus_bulk_client
+        "tgen-server+bulk": (combo_scenario,
+                             caps(qcap=32, scap=12, obcap=16, incap=24,
+                                  txqcap=12, chunk_windows=8), 0),
+        # tgen-1k at 50 hosts, 4 sim-s: every client's first transfer
+        # and pause
+        "tgen-1k-at-50": (lambda: build_bulk_1k(50, stop=4),
+                          lambda n: socks_caps(n, scap=32), 10),
+        # tgen-1k, all 1,000 hosts, to 2.25 sim-s (6,205 passes; the CPU
+        # half takes ~70 ms a pass)
+        "tgen-1k-2.25": (lambda: build_bulk_1k(1000, stop=2.25),
+                         lambda n: socks_caps(n, scap=32), 10),
+    }
+
+
+def _tgen_run(name, device):
+    """Run one tgen shape -> (stats, Hosts arrays, summary)."""
+    from shadow_tpu_torch.baseline_configs import apply_runahead
+    from shadow_tpu_torch.engine.sim import Simulation
+    mk, cfg, runahead = _tgen_shapes()[name]
+    scen = mk()
+    sim = apply_runahead(Simulation(scen, engine_cfg=cfg(
+        scen.total_hosts()), device=device), runahead)
+    rep = sim.run()
+    return *arrays(sim, rep), rep.summary()
+
+
+def _tgen_cpu_run(name):
+    """A child process's CPU half of one tgen shape."""
+    torch.set_num_threads(4)
+    return _tgen_run(name, "cpu")
+
+
+def tgen_gpu_cpu_phase(canonicalize_state, label="tgen-gpu=cpu",
+                       names=TGEN_GPU_CPU):
+    """13. tgen and multi-process hosts on the card and on the CPU, bit
+    for bit. The CPU halves run in a child process while the card runs
+    (results only: neither side's wall is a measurement here)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    t0 = time.perf_counter()
+    with cf.ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as ex:
+        cpu = {n: ex.submit(_tgen_cpu_run, n) for n in names}
+        for name in names:
+            gst, ga, s = _tgen_run(name, "cuda")
+            cst, ca, cs = cpu[name].result()
+            raw = _same_on_both(name, (gst, ga), (cst, ca),
+                                canonicalize_state)
+            if s["windows"] != cs["windows"]:
+                fail(f"{name}: {s['windows']} windows on cuda, "
+                     f"{cs['windows']} on cpu")
+            if not s["transfers_done"]:
+                fail(f"{name}: no transfer completed: {s}")
+            print(f"  {name}: events={s['events']} passes={s['passes']} "
+                  f"windows={s['windows']} transfers={s['transfers_done']} "
+                  f"retransmits={s['retransmits']} cuda_wall="
+                  f"{s['wall_seconds']:.3f}s cpu_wall="
+                  f"{cs['wall_seconds']:.3f}s fields_equal=82 "
+                  f"raw_differing={raw}", flush=True)
+    phase(label, time.perf_counter() - t0)
+
+
+def tgen1k_cpu_phase(canonicalize_state):
+    """tgen-1k-cpu: tgen-1k to 2.25 sim-s on the card and on the CPU, bit
+    for bit (the stats hold every host's transfers)."""
+    tgen_gpu_cpu_phase(canonicalize_state, "tgen-1k-cpu", ("tgen-1k-2.25",))
+
+
+def _cli_tgen_child(conn):
+    """A child process: examples/tgen-web-bulk.xml through the CLI on the
+    card, from the repository root (its graph paths are relative to the
+    working directory) -> (rc, summary, transfers per host, wall s)."""
+    from shadow_tpu_torch.__main__ import main as cli
+    from shadow_tpu_torch.engine import defs
+    from shadow_tpu_torch.engine import sim as S
+    t0 = time.perf_counter()
+    reports = []
+    run = S.Simulation.run
+
+    def keep(self, *a, **kw):
+        reports.append(run(self, *a, **kw))
+        return reports[-1]
+
+    S.Simulation.run = keep
+    os.chdir(HERE)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli(["examples/tgen-web-bulk.xml", "--summary-json"])
+        s = json.loads(buf.getvalue().strip().splitlines()[-1])
+        rep = reports[-1]
+        xfer = {n: int(rep.stats[i, defs.ST_XFER_DONE])
+                for i, n in enumerate(rep.host_names)}
+        conn.send((rc, s, xfer, time.perf_counter() - t0))
+    except BaseException as e:
+        conn.send((f"{type(e).__name__}: {e}", None, None, None))
+        raise
+
+
+class CliTgen:
+    """7. cli-tgen, run by a child process while phases 8-13 run:
+    every web host completes 10 transfers and every bulk host 5."""
+
+    def __init__(self):
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.conn, child = ctx.Pipe(duplex=False)
+        self.proc = ctx.Process(target=_cli_tgen_child, args=(child,))
+        self.proc.start()
+
+    def finish(self):
+        t0 = time.perf_counter()
+        while not self.conn.poll(1):
+            if not self.proc.is_alive() and not self.conn.poll(0):
+                fail(f"cli tgen-web-bulk: its process exited "
+                     f"{self.proc.exitcode} with no result")
+        rc, s, xfer, wall = self.conn.recv()
+        if s is None:
+            fail(f"cli tgen-web-bulk: {rc}")
+        want = {n: 10 if n.startswith("web") else 5 for n in xfer
+                if not n.startswith("server")}
+        short = {n: xfer[n] for n in want if xfer[n] != want[n]}
+        if rc != 0 or s["device"] != "cuda" or short or not s["drop_net"]:
+            fail(f"cli tgen-web-bulk: rc={rc} hosts short of their "
+                 f"transfers {short} {s}")
+        phase("cli-tgen", wall, waited_s=round(time.perf_counter() - t0, 3),
+              events=s["events"], windows=s["windows"], passes=s["passes"],
+              transfers=s["transfers_done"], drop_net=s["drop_net"],
+              retransmits=s["retransmits"],
+              per_host=json.dumps(xfer, separators=(",", ":")))
+
+    def stop(self):
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join()
 
 
 if __name__ == "__main__":

@@ -11,15 +11,20 @@ convention:
 ``branches`` is the set of branch indices (the reason clipped to
 [0, 6]: WAKE_START .. WAKE_SENT) that at least one of those rows takes: a branch no row takes
 is skipped, which saves its launches and changes no row. Apps keep
-their state in ``app_node``/``app_r`` and read ``app_cfg``; with one
-process slot per host those are the ``[:, 0]`` views.
+their state in ``app_r`` and read ``app_cfg`` through :func:`regs` and
+:func:`cfg_words`, the ``[:, 0]`` views: with several processes per
+host, :func:`dispatch` hands the apps a single-process copy of each
+row's waking process and writes it back after them.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..core import rng as R
+from ..core.rowops import rget, rset_where
 from ..engine import equeue
 from ..engine.defs import EV_APP, WAKE_TIMER
 from ..net import packet as P
@@ -41,13 +46,21 @@ N_BRANCHES = 7      # wake reasons WAKE_START=0 .. WAKE_SENT=6
 
 
 def regs(st):
-    """[H, 8] int64 register view of the single process slot."""
+    """[H, 8] int64 register view of the (waking) process slot."""
     return st.app_r[:, 0]
 
 
 def cfg_words(hp):
-    """[H, 8] int64 config words of the single process slot."""
+    """[H, 8] int64 config words of the (waking) process slot."""
     return hp.app_cfg[:, 0]
+
+
+def process_of(st, wake):
+    """[H] process slot a wake belongs to: the owner of its socket, or
+    for a slotless wake the process stamped in its SRC word."""
+    slot = wake[:, P.SEQ]
+    proc = torch.where(slot >= 0, rget(st.sk_proc, slot), wake[:, P.SRC])
+    return proc.clamp(0, st.app_r.shape[1] - 1)
 
 
 def branch_of(wake):
@@ -94,18 +107,38 @@ def _ported_apps():
     from .phold import app_phold
     from .ping import app_ping, app_ping_server
     from .socks import app_socks_client, app_socks_proxy
+    from .tgen import app_tgen
     return {APP_PING: app_ping, APP_PING_SERVER: app_ping_server,
-            APP_PHOLD: app_phold, APP_BULK: app_bulk,
+            APP_PHOLD: app_phold, APP_TGEN: app_tgen, APP_BULK: app_bulk,
             APP_BULK_SERVER: app_bulk_server, APP_GOSSIP: app_gossip,
             APP_SOCKS_CLIENT: app_socks_client,
             APP_SOCKS_PROXY: app_socks_proxy}
 
 
-def dispatch(st, hp, sh, m, now, wake, present):
+def dispatch(st, hp, sh, m, now, wake, present, proc=None):
     """EV_APP entry: run each masked row's app. ``present`` is the set
-    of (app kind, branch) pairs some row takes in this pass."""
-    kind = hp.app_kind[:, 0]
+    of (app kind, branch) pairs some row takes in this pass.
+
+    With one process per host (``proc`` None) the apps run on the
+    state itself. Otherwise ``proc`` is each row's waking process
+    (:func:`process_of`): the apps run on a copy holding that process's
+    registers, config and kind in slot 0 (``app_proc`` = ``proc``, so
+    sockets and timers they create belong to it), and the masked rows
+    of the registers go back to their process slot. (No app keeps state
+    in ``app_node``.)"""
+    vst, vhp = st, hp
+    if proc is not None:
+        rows = torch.arange(proc.shape[0], device=proc.device)
+        ix = proc.to(torch.int64)
+        vst = dataclasses.replace(st, app_r=st.app_r[rows, ix].unsqueeze(1),
+                                  app_proc=proc)
+        vhp = dataclasses.replace(
+            hp, app_kind=hp.app_kind[rows, ix].unsqueeze(1),
+            app_cfg=hp.app_cfg[rows, ix].unsqueeze(1))
+    kind = vhp.app_kind[:, 0]
     for k, app in _ported_apps().items():
         branches = {b for kk, b in present if kk == k}
         if branches:
-            app(st, hp, sh, m & (kind == k), now, wake, branches)
+            app(vst, vhp, sh, m & (kind == k), now, wake, branches)
+    if proc is not None:
+        rset_where(st.app_r, proc, m, vst.app_r[:, 0])

@@ -18,16 +18,19 @@ Ported plugins:
   socksclient proxy-lo=ID proxy-hi=ID proxy-port=N server-lo=ID
               server-hi=ID size=BYTES count=N pause=<time> hops=1..3
   socksproxy  port=N server-port=N relay-lo=ID relay-hi=ID
+  tgen        <behavior graphml path, or the graphml inline>
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 from ..core.simtime import parse_time
 from .base import (APP_BULK, APP_BULK_SERVER, APP_GOSSIP, APP_PHOLD,
                    APP_PING, APP_PING_SERVER, APP_SOCKS_CLIENT,
-                   APP_SOCKS_PROXY)
+                   APP_SOCKS_PROXY, APP_TGEN)
 
 
 def parse_kv(args: str) -> dict:
@@ -41,12 +44,11 @@ def parse_kv(args: str) -> dict:
     return out
 
 
-# plugins of the reference that later slices port
-_LATER = {"tgen": "ROADMAP A6b"}
-
-
-def compile_app(plugin: str, args: str, dns, num_hosts: int):
-    """-> (app_kind, cfg[8] int64) for one process spec."""
+def compile_app(plugin: str, args: str, dns, num_hosts: int,
+                tgen_tables=None):
+    """-> (app_kind, cfg[8] int64) for one process spec. A tgen
+    process compiles its behavior graph into `tgen_tables`
+    (apps/tgen.TgenTables, one per simulation)."""
     cfg = np.zeros(8, dtype=np.int64)
     kv = parse_kv(args)
     if plugin == "ping":
@@ -121,17 +123,29 @@ def compile_app(plugin: str, args: str, dns, num_hosts: int):
         cfg[3] = int(kv.get("relay-lo", 0))
         cfg[4] = int(kv.get("relay-hi", 0))
         return APP_SOCKS_PROXY, cfg
-    if plugin in _LATER:
-        raise NotImplementedError(
-            f"plugin {plugin!r} is not ported to shadow_tpu_torch yet "
-            f"({_LATER[plugin]})")
     if plugin.startswith("hosted:"):
         raise NotImplementedError(
             "hosted applications are not ported to shadow_tpu_torch yet "
             "(ROADMAP A9)")
+    if plugin == "tgen":
+        if tgen_tables is None:
+            raise ValueError("tgen requires a TgenTables compile context")
+        source = args.strip()
+        if not source.startswith("<"):
+            # a file path (the reference's argv form), relative to the
+            # working directory; taken whole, not split as key=value
+            if not source:
+                raise ValueError(
+                    "tgen requires a behavior graph (a graphml path or "
+                    "inline graphml) as its process argument")
+            if not os.path.exists(source):
+                raise ValueError(
+                    f"tgen behavior graph not found: {source!r}")
+        cfg[0] = tgen_tables.compile(source, dns)
+        return APP_TGEN, cfg
     raise ValueError(f"unknown plugin {plugin!r} (ported: ping, "
                      "pingserver, phold, gossip, bulk, bulkserver, "
-                     "socksclient, socksproxy)")
+                     "socksclient, socksproxy, tgen)")
 
 
 # --- scenario-scaled engine capacities (shrink campaign, lever 3) ---------

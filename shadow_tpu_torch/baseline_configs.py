@@ -1,16 +1,23 @@
-"""Builders for the socks10k configuration (client -> relay -> server
-fetches over 10,000 hosts) on the PyTorch port.
+"""Builders for the socks10k and tgen-1k configurations on the
+PyTorch port.
 
 A jax-free copy of the reference's ``tools/baseline_configs.py``
-builders (``build_socks``, ``socks_caps``, ``apply_runahead``,
-``_plab_or_fallback``) and of ``tools/gen_topology.py:er_topology``,
-built on this package's ``Scenario`` and ``EngineConfig``; the tests
-hold them equal to the originals.
+builders (``build_socks``, ``socks_caps``, ``build_bulk_1k`` with its
+graphs, ``apply_runahead``, ``_plab_or_fallback``) and of
+``tools/gen_topology.py:er_topology``, built on this package's
+``Scenario`` and ``EngineConfig``; the tests hold them equal to the
+originals.
 
 socks10k (``bench.py:bench_socks``): ``build_socks(10_000, hops=1,
 count=0, pause="5s")`` — 1,000 bulkservers, 1,000 socksproxies and
 8,000 socksclients fetching 48 KiB through a 1-hop circuit — with
 ``socks_caps(10_000, scap=96)`` and a 10 ms runahead (:func:`socks10k`).
+
+tgen-1k (``bench.py:bench_tgen_tcp``): ``build_bulk_1k(1000)`` — 200
+tgen servers, 600 web clients (100 KiB GETs, pauses drawn from 1-5 s)
+and 200 bulk clients (1 MiB PUTs, 1 s pauses), peers drawn from every
+server — with ``socks_caps(1000, scap=32)`` and a 10 ms runahead
+(:func:`bulk1k`).
 """
 
 from __future__ import annotations
@@ -129,6 +136,69 @@ def socks_caps(n_hosts, scap=96, active_block=-1):
                         active_block=active_block)
 
 
+_TGEN_KEYS = (
+    '<key attr.name="count" attr.type="string" for="node" id="d6"/>'
+    '<key attr.name="size" attr.type="string" for="node" id="d5"/>'
+    '<key attr.name="type" attr.type="string" for="node" id="d4"/>'
+    '<key attr.name="time" attr.type="string" for="node" id="d2"/>'
+    '<key attr.name="peers" attr.type="string" for="node" id="d0"/>'
+    '<key attr.name="serverport" attr.type="string" for="node" id="d1"/>')
+
+
+def _tgen_client_graph(peers, ttype, size, pause, count):
+    """A web/bulk-style walk: transfer -> end(count) -> pause -> start,
+    peers drawn uniformly from the whole server pool."""
+    return (
+        '<graphml xmlns="http://graphml.graphdrawing.org/xmlns">'
+        f'{_TGEN_KEYS}<graph edgedefault="directed">'
+        f'<node id="start"><data key="d0">{peers}</data></node>'
+        f'<node id="pause"><data key="d2">{pause}</data></node>'
+        '<node id="transfer">'
+        f'<data key="d4">{ttype}</data><data key="d5">{size}</data></node>'
+        f'<node id="end"><data key="d6">{count}</data></node>'
+        '<edge source="start" target="transfer"/>'
+        '<edge source="transfer" target="end"/>'
+        '<edge source="end" target="pause"/>'
+        '<edge source="pause" target="start"/>'
+        '</graph></graphml>')
+
+
+def build_bulk_1k(n_hosts=1000, stop=60):
+    """tgen-1k at `n_hosts` hosts: a fifth tgen servers, a fifth bulk
+    clients, the rest web clients (the reference's example workload,
+    tgen servers with web and bulk clients, scaled up). Host ids are
+    declaration-ordered: servers, web, bulk."""
+    from .core.config import HostSpec, ProcessSpec, Scenario
+
+    n_srv = max(n_hosts // 5, 1)
+    n_bulk = max(n_hosts // 5, 1)
+    n_web = n_hosts - n_srv - n_bulk
+    peers = ",".join(f"server{i + 1}:30080" for i in range(n_srv))
+    server_graph = (
+        '<graphml xmlns="http://graphml.graphdrawing.org/xmlns">'
+        f'{_TGEN_KEYS}<graph edgedefault="directed">'
+        '<node id="start"><data key="d1">30080</data></node>'
+        '</graph></graphml>')
+    web_graph = _tgen_client_graph(peers, "get", "100 KiB",
+                                   "1,2,3,4,5", 0)
+    bulk_graph = _tgen_client_graph(peers, "put", "1 MiB", "1", 0)
+    return Scenario(
+        stop_time=stop * 10**9,
+        topology_graphml=_plab_or_fallback(),
+        hosts=[
+            HostSpec(id="server", quantity=n_srv, processes=[
+                ProcessSpec(plugin="tgen", start_time=10**9,
+                            arguments=server_graph)]),
+            HostSpec(id="web", quantity=n_web, processes=[
+                ProcessSpec(plugin="tgen", start_time=2 * 10**9,
+                            arguments=web_graph)]),
+            HostSpec(id="bulk", quantity=n_bulk, processes=[
+                ProcessSpec(plugin="tgen", start_time=2 * 10**9,
+                            arguments=bulk_graph)]),
+        ],
+    )
+
+
 def apply_runahead(sim, runahead_ms):
     """Override the lookahead window (the reference's --runahead)."""
     if runahead_ms:
@@ -142,3 +212,12 @@ def socks10k(n=10_000, stop=10, device=None, runahead_ms=10):
     scen = build_socks(n, hops=1, stop=stop, count=0, pause="5s")
     return apply_runahead(Simulation(scen, engine_cfg=socks_caps(n, 96),
                                      device=device), runahead_ms)
+
+
+def bulk1k(n=1000, stop=10, device=None, runahead_ms=10):
+    """-> the tgen-1k Simulation (not yet run)."""
+    from .engine.sim import Simulation
+    return apply_runahead(
+        Simulation(build_bulk_1k(n, stop=stop),
+                   engine_cfg=socks_caps(n, scap=32), device=device),
+        runahead_ms)

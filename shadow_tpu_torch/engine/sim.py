@@ -3,8 +3,9 @@
 Counterpart of ``shadow_tpu/engine/sim.py``: loads the scenario, builds
 the topology oracle and DNS, registers hosts and their processes in the
 reference's order (topology -> attach -> DNS -> ``compile_app`` ->
-``make_shared``/``alloc_hosts`` -> the initial WAKE_START pushes), then
-drives the window loop ``chunk_windows`` windows at a time.
+``make_shared``/``alloc_hosts`` -> the initial WAKE_START pushes, one
+per process slot), then drives the window loop ``chunk_windows``
+windows at a time.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from ..apps.base import (APP_BULK, APP_BULK_SERVER, APP_GOSSIP, APP_HOSTED,
                          APP_SOCKS_CLIENT, APP_SOCKS_PROXY, APP_TGEN)
 from ..apps.compile import compile_app
+from ..apps.tgen import TgenTables
 from ..core import rng as R
 from ..core.config import Scenario
 from ..core.constants import (DEFAULT_MIN_TIME_JUMP, INTERFACE_BUFFER_SIZE,
@@ -210,6 +212,9 @@ class Simulation:
         has_app = np.zeros((H, PP), dtype=bool)
         pcap_on = np.zeros(H, dtype=bool)
 
+        # every tgen process of the scenario compiles into one set of
+        # shared tables
+        tgen_tables = TgenTables()
         for idx, name, spec in scenario.expand_hosts():
             v = vertex[idx]
             bw_up[idx] = (spec.bandwidth_up or self.topo.v_bw_up_bytes[v]
@@ -234,7 +239,8 @@ class Simulation:
                 cpu_threshold[idx] = scenario.cpu_threshold_ns
             for p, proc in enumerate(spec.processes):
                 kind, cfg_words = compile_app(proc.plugin, proc.arguments,
-                                              self.dns, H)
+                                              self.dns, H,
+                                              tgen_tables=tgen_tables)
                 app_kind[idx, p] = kind
                 app_cfg[idx, p] = cfg_words
                 start_times[idx, p] = proc.start_time
@@ -249,6 +255,10 @@ class Simulation:
                     f"shadow_tpu_torch: warning: gossip peer range "
                     f"n={n_draw} covers {bad} non-gossip host id(s); "
                     "their relay datagrams are silently dropped\n")
+        tg_nodes, tg_peers, tg_pool, tg_edges = tgen_tables.arrays()
+        if tgen_tables.sync_slots > self.cfg.synccap:
+            self.cfg = dataclasses.replace(self.cfg,
+                                           synccap=tgen_tables.sync_slots)
 
         # dead-branch knobs the reference derives from the apps: which
         # app kinds exist and whether TCP can be opened at all
@@ -293,7 +303,9 @@ class Simulation:
         min_jump = self.topo.min_latency_ns or DEFAULT_MIN_TIME_JUMP
         self.sh = make_shared(self.topo.latency_ns, self.topo.reliability,
                               scenario.stop_time, min_jump, dev, seed=seed,
-                              cc_kind=self.cfg.cc_kind, host_vertex=vertex,
+                              cc_kind=self.cfg.cc_kind, tgen_nodes=tg_nodes,
+                              tgen_peers=tg_peers, tgen_pool=tg_pool,
+                              tgen_edges=tg_edges, host_vertex=vertex,
                               host_bw_up=bw_up, host_bw_down=bw_down)
 
         # initial events: one process start per slot, in slot order

@@ -71,8 +71,6 @@ def check_supported(cfg: EngineConfig):
     """Raise NotImplementedError for engine features this port does not
     run yet, naming the ROADMAP item that brings each."""
     missing = []
-    if cfg.procs_per_host > 1:
-        missing.append("several processes per host (ROADMAP A6b)")
     if cfg.netscope:
         missing.append("the network observatory (netscope; ROADMAP A7)")
     if cfg.tracecap > 0:
@@ -218,10 +216,10 @@ class Shared:
     cc_kind: torch.Tensor      # i32
     tcp_init_wnd: torch.Tensor  # f32
     tcp_ssthresh0: torch.Tensor  # f32
-    tgen_nodes: torch.Tensor   # [1, 10] i64 (tgen not ported: dummy row)
-    tgen_peers: torch.Tensor   # [1, 2] i32
-    tgen_pool: torch.Tensor    # [1] i64
-    tgen_edges: torch.Tensor   # [1] i32
+    tgen_nodes: torch.Tensor   # [N, 10] i64 tgen behavior-graph nodes
+    tgen_peers: torch.Tensor   # [NP, 2] i32 (host, port) transfer peers
+    tgen_pool: torch.Tensor    # [NS] i64 drawn pause choices (ns)
+    tgen_edges: torch.Tensor   # [NE] i32 successor-node indices
 
 
 def alloc_hosts(cfg: EngineConfig, device) -> Hosts:
@@ -325,15 +323,28 @@ def alloc_hosts(cfg: EngineConfig, device) -> Hosts:
 def make_shared(topo_lat_ns: np.ndarray, topo_rel: np.ndarray,
                 stop_time: int, min_jump: int, device, seed: int = 1,
                 cc_kind: int = 2, tcp_init_wnd: float = 10.0,
-                tcp_ssthresh0: float = 0.0, host_vertex: np.ndarray = None,
+                tcp_ssthresh0: float = 0.0, tgen_nodes: np.ndarray = None,
+                tgen_peers: np.ndarray = None, tgen_pool: np.ndarray = None,
+                tgen_edges: np.ndarray = None,
+                host_vertex: np.ndarray = None,
                 host_bw_up: np.ndarray = None,
                 host_bw_down: np.ndarray = None) -> Shared:
+    """The replicated tables on `device`; the tgen tables default to the
+    reference's one-row placeholders (no behavior graph)."""
     if host_vertex is None:
         host_vertex = np.zeros((1,), np.int32)
     if host_bw_up is None:
         host_bw_up = np.ones((1,), np.int64)
     if host_bw_down is None:
         host_bw_down = np.ones((1,), np.int64)
+    if tgen_nodes is None:
+        tgen_nodes = np.zeros((1, 10), np.int64)
+    if tgen_peers is None:
+        tgen_peers = np.zeros((1, 2), np.int32)
+    if tgen_pool is None:
+        tgen_pool = np.zeros((1,), np.int64)
+    if tgen_edges is None:
+        tgen_edges = np.full((1,), -1, np.int32)
 
     def t(a, dt):
         return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
@@ -355,8 +366,8 @@ def make_shared(topo_lat_ns: np.ndarray, topo_rel: np.ndarray,
         cc_kind=t(cc_kind, torch.int32),
         tcp_init_wnd=t(tcp_init_wnd, torch.float32),
         tcp_ssthresh0=t(tcp_ssthresh0, torch.float32),
-        tgen_nodes=torch.zeros((1, 10), dtype=torch.int64, device=device),
-        tgen_peers=torch.zeros((1, 2), dtype=torch.int32, device=device),
-        tgen_pool=torch.zeros((1,), dtype=torch.int64, device=device),
-        tgen_edges=torch.full((1,), -1, dtype=torch.int32, device=device),
+        tgen_nodes=t(tgen_nodes, torch.int64),
+        tgen_peers=t(tgen_peers, torch.int32),
+        tgen_pool=t(tgen_pool, torch.int64),
+        tgen_edges=t(tgen_edges, torch.int32),
     )

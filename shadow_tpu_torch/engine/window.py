@@ -30,7 +30,8 @@ from __future__ import annotations
 
 import torch
 
-from ..apps.base import N_APP_KINDS, N_BRANCHES, branch_of, dispatch
+from ..apps.base import (N_APP_KINDS, N_BRANCHES, branch_of, dispatch,
+                         process_of)
 from ..core import rng as R
 from ..core.rowops import col_add, rget
 from ..core.simtime import SIMTIME_MAX
@@ -135,8 +136,15 @@ def step_all_hosts(st, hp, sh, wend: int, cfg: EngineConfig) -> bool:
     ready = t < wend
     kind = torch.where(ready, rget(st.eq_kind, slot), EV_NULL)
     pkt = rget(st.eq_pkt, slot)
-    flags, parts = _pass_flags(st, kind, hp.app_kind[:, 0], branch_of(pkt),
-                               pkt, t, cfg)
+    # the app kind of each wake's process: with one process per host the
+    # [:, 0] view (no launch), else the process the wake belongs to
+    proc = None
+    app_kind = hp.app_kind[:, 0]
+    if cfg.procs_per_host > 1:
+        proc = process_of(st, pkt)
+        app_kind = rget(hp.app_kind, proc)
+    flags, parts = _pass_flags(st, kind, app_kind, branch_of(pkt), pkt, t,
+                               cfg)
     flags.discard(EV_NULL)
     if not flags:
         return False
@@ -146,7 +154,7 @@ def step_all_hosts(st, hp, sh, wend: int, cfg: EngineConfig) -> bool:
              (c - N_EVENT_KINDS) % N_BRANCHES)
             for c in flags if c >= N_EVENT_KINDS}
     if apps:
-        dispatch(st, hp, sh, kind == EV_APP, t, pkt, apps)
+        dispatch(st, hp, sh, kind == EV_APP, t, pkt, apps, proc)
     if EV_PKT in flags:
         _on_pkt(st, hp, sh, kind == EV_PKT, t, pkt, cfg, parts)
     if EV_NIC_TX in flags:
@@ -324,6 +332,7 @@ def next_wakeup(st) -> int:
     return int(torch.minimum(st.eq_next.min(), st.ob_next.min()))
 
 
+@torch.inference_mode()
 def run_windows(st, hp, sh, wstart: int, wend: int, cfg: EngineConfig,
                 max_windows: int, clock=None):
     """Execute up to `max_windows` lookahead windows in place.
@@ -331,7 +340,9 @@ def run_windows(st, hp, sh, wstart: int, wend: int, cfg: EngineConfig,
     Returns (wstart', wend', windows_run, passes). The caller loops
     until wstart' >= stop_time or wstart' == SIMTIME_MAX. `clock`, when
     given, is called with "drain", "exchange" and "advance" as each
-    phase of a window ends (a wall-time split; chip_smoke --profile)."""
+    phase of a window ends (a wall-time split; chip_smoke --profile).
+    Runs in inference mode: nothing here needs autograd, and skipping
+    its bookkeeping shortens every operation's host time."""
     tick = clock or (lambda _label: None)
     stop = int(sh.stop_time)
     min_jump = int(sh.min_jump)

@@ -10,6 +10,8 @@ that has only PyTorch:
 The random batched rows defined here also feed tests/test_torch_units.py.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,7 @@ from shadow_tpu_torch.engine.state import (EngineConfig, HostParams, Hosts,
                                            alloc_hosts, make_shared)
 from shadow_tpu_torch.net import packet as P
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H = 192
 CAPS = dict(qcap=12, scap=4, obcap=6, incap=5, txqcap=4)
 
@@ -246,4 +249,48 @@ def test_tcp_cuda_equals_cpu(cuda_device, name, make, caps):
     assert np.array_equal(out[0][0], out[1][0])
     bad = [f for f in out[0][1]
            if not np.array_equal(out[0][1][f], out[1][1][f])]
+    assert not bad, bad
+
+
+# --- tgen and multi-process hosts --------------------------------------------
+
+def tgen_lossy():
+    """tgen servers, web clients (GETs, drawn pauses) and a bulk client
+    (the example graphs) over a 2%-loss link, plus a host running a tgen
+    server and a bulk client side by side: 7 hosts, 8 sim-s."""
+    ex = os.path.join(ROOT, "examples")
+    graph = {k: os.path.join(ex, f"tgen.{k}.graphml.xml")
+             for k in ("server", "web", "bulk")}
+    return Scenario(stop_time=8 * 10**9, topology_graphml=poi_topology(0.02),
+                    hosts=[
+        HostSpec(id="server", quantity=2, processes=[ProcessSpec(
+            plugin="tgen", start_time=10**9, arguments=graph["server"])]),
+        HostSpec(id="web", quantity=2, processes=[ProcessSpec(
+            plugin="tgen", start_time=2 * 10**9, arguments=graph["web"])]),
+        HostSpec(id="bulk", processes=[ProcessSpec(
+            plugin="tgen", start_time=2 * 10**9, arguments=graph["bulk"])]),
+        HostSpec(id="combo", processes=[
+            ProcessSpec(plugin="tgen", start_time=10**9,
+                        arguments=graph["server"]),
+            ProcessSpec(plugin="bulk", start_time=2 * 10**9,
+                        arguments="peer=peer port=80 size=40000 count=2 "
+                                  "pause=1s")]),
+        HostSpec(id="peer", processes=[ProcessSpec(
+            plugin="bulkserver", start_time=10**9, arguments="port=80")])])
+
+
+@pytest.mark.cuda
+def test_tgen_multiproc_cuda_equals_cpu(cuda_device):
+    out = []
+    for dev in ("cpu", cuda_device):
+        sim = Simulation(tgen_lossy(), device=dev, engine_cfg=EngineConfig(
+            num_hosts=7, qcap=32, scap=12, obcap=16, incap=24, txqcap=12,
+            chunk_windows=8))
+        rep = sim.run()
+        out.append((rep.stats, rep.windows,
+                    W.canonicalize_state(sim.final_hosts.numpy())))
+    assert out[0][0][:, 13].sum() > 0        # ST_XFER_DONE
+    assert np.array_equal(out[0][0], out[1][0]) and out[0][1] == out[1][1]
+    bad = [f for f in out[0][2]
+           if not np.array_equal(out[0][2][f], out[1][2][f])]
     assert not bad, bad

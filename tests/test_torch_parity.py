@@ -173,17 +173,26 @@ def test_fresh_state_matches():
     WAKE_START pushes): every Hosts field, the HostParams arrays, the
     Shared tables (TCP scalars included) and the resolved engine config
     equal the reference's before any window — for a UDP shape and for
-    the TCP bulk and SOCKS shapes."""
+    the TCP bulk and SOCKS shapes, a tgen shape (the Shared tgen tables
+    and synchronize slots) and a two-process shape."""
+    from conftest import SIMPLE_TOPOLOGY
     from test_differential import _bulk_scen, _socks_scen
+    from test_multiproc import _mutual_scen
+    from test_tgen import FORK_GRAPH, tgen_scenario
 
     def scen():
         s = phold_scenario(n=10, stop=3)
         s.topology_graphml = _lossy_mesh()
         return s
 
+    def tgen():
+        s = tgen_scenario(SIMPLE_TOPOLOGY)
+        s.hosts[1].processes[0].arguments = FORK_GRAPH
+        return s
+
     cfg = dict(qcap=16, scap=4, obcap=8, incap=16, txqcap=8)
     for mk in (scen, _bulk_scen(loss=0.05, size=120_000, count=2),
-               _socks_scen(loss=0.02, hops=2)):
+               _socks_scen(loss=0.02, hops=2), tgen, _mutual_scen):
         _fresh_state_equal(mk, cfg)
 
 
@@ -202,7 +211,8 @@ def _fresh_state_equal(scen, cfg):
         assert a.dtype == b.dtype and np.array_equal(a, b), f
     for f in ("lat_ns", "rel", "host_vertex", "host_bw_up", "host_bw_down",
               "seed32", "stop_time", "min_jump", "rng_root", "cc_kind",
-              "tcp_init_wnd", "tcp_ssthresh0"):
+              "tcp_init_wnd", "tcp_ssthresh0", "tgen_nodes", "tgen_peers",
+              "tgen_pool", "tgen_edges"):
         a = np.asarray(getattr(rsim.sh, f))
         b = getattr(psim.sh, f).numpy()
         assert a.dtype == b.dtype and np.array_equal(a, b), f
@@ -223,12 +233,11 @@ def test_phase_clock_sees_every_window():
 
 
 def test_unported_features_raise():
-    """tgen and engine features of later slices raise
-    NotImplementedError naming their ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="A6b"):
-        Simulation(load_xml(os.path.join(ROOT, "examples",
-                                         "tgen-web-bulk.xml")),
-                   device="cpu")
+    """Engine features of later slices raise NotImplementedError naming
+    their ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="A8"):
+        Simulation(phold_scenario(n=4, stop=2), device="cpu",
+                   engine_cfg=EngineConfig(num_hosts=4, cpu_model=True))
     with pytest.raises(NotImplementedError, match="A7"):
         Simulation(phold_scenario(n=4, stop=2), device="cpu",
                    engine_cfg=EngineConfig(num_hosts=4, netscope=True))

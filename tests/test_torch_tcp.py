@@ -147,9 +147,9 @@ def test_tcp_scenarios_build():
 
 
 def test_socks_builders_match_tools():
-    """The port's jax-free copies of the socks10k builders and of the
-    ER topology generator give the tools' GraphML text, Scenario fields
-    and EngineConfig."""
+    """The port's jax-free copies of the socks10k and tgen-1k builders
+    and of the ER topology generator give the tools' GraphML text,
+    Scenario fields and EngineConfig."""
     from tools import baseline_configs as TB
     from tools import gen_topology as TG
 
@@ -172,3 +172,16 @@ def test_socks_builders_match_tools():
         assert fields(rs) == fields(ps)
         assert (dataclasses.asdict(TB.socks_caps(n, scap=96))
                 == dataclasses.asdict(PB.socks_caps(n, scap=96)))
+    # tgen-1k's builder (bench.py:bench_tgen_tcp) and its caps
+    for n, stop in ((1000, 10), (50, 4), (7, 60)):
+        assert (fields(TB.build_bulk_1k(n, stop=stop))
+                == fields(PB.build_bulk_1k(n, stop=stop)))
+    assert (dataclasses.asdict(TB.socks_caps(1000, scap=32))
+            == dataclasses.asdict(PB.socks_caps(1000, scap=32)))
+    sim = PB.bulk1k(50, stop=4, device="cpu")
+    want = TB.socks_caps(50, scap=32)
+    assert [getattr(sim.cfg, k) for k in ("qcap", "scap", "obcap", "incap",
+                                          "txqcap", "chunk_windows")] == [
+        want.qcap, want.scap, want.obcap, want.incap, want.txqcap,
+        want.chunk_windows]
+    assert int(sim.sh.min_jump) == 10**7 and sim.cfg.app_kinds == (4,)
