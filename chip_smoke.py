@@ -28,8 +28,8 @@ The timed phases run first, each alone on the card and the host:
               is lost, no socket table or event queue overflows; launches
               per pass and the busy share from a span of its passes.
 
-The checks that time nothing run after them, beside phase 7 in a second
-process:
+The checks that time nothing run after them, beside phases 7 and 17,
+each in a process of its own on the same card:
 
 7. cli-tgen — examples/tgen-web-bulk.xml through ``python -m
               shadow_tpu_torch`` on the card: every web host completes
@@ -48,6 +48,27 @@ process:
               host running a tgen server beside a bulk client, tgen-1k
               at 50 hosts) on cuda and on cpu: equal stats, windows and
               Hosts fields.
+14. faults-demo — examples/faults-demo.xml through ``python -m
+              shadow_tpu_torch --digest`` on the card and with ``--device
+              cpu``: equal digest chains; the pings in [4 s, 6 s) are
+              lost on the dead link, the 7 s ping at the dead server, and
+              the pings from 8 s on are answered.
+15. ckpt-gpu=cpu — the multihop lossy SOCKS shape of phase 11 with one
+              relay's host_down episode, checkpointed on the card and
+              resumed on the CPU from a snapshot inside the episode: its
+              digest chain equals an uninterrupted CPU run's (and the
+              card's).
+16. cpu-model-gpu=cpu — tests/test_cpu_model.py's blocked-threshold
+              shape on cuda and on cpu: equal stats and digest chains.
+17. socks10k-faults — socks10k's 10,000 hosts to 3 sim-s under a fault
+              schedule (relay1-50 down over [2.3 s, 2.7 s), 5% loss
+              between relay51 and server1 over [2.2 s, 2.8 s), +5 ms
+              between client1 and relay52 over [2.4 s, 2.9 s)): run A
+              records a digest chain every 16 windows and checkpoints
+              every 0.75 sim-s, keeping 2; run B, a fresh Simulation,
+              resumes from the snapshot taken inside the host_down and
+              loss episodes (by its fault schedule position) and must
+              end with run A's chain, final stats and fault log.
 
 ``--phases tgen-1k-cpu`` (never part of the default run) holds tgen-1k
 itself, all 1,000 hosts to 2.25 sim-s, on cuda against cpu: equal
@@ -61,7 +82,7 @@ device's busy share against the unprofiled wall, the top kernels).
 ``--phases a,b`` runs only the named phases of the default run (or of
 ``--profile``).
 
-The JAX package has no Pallas kernel, so this slice ports no kernel:
+The JAX package has no Pallas kernel, so the port has no kernel:
 the port's device work is plain PyTorch, and the ``kernels`` line is an
 empty list. The last line is the contract line
 ``{"ok": true, "device": {...}}``. With no CUDA device the script exits
@@ -532,9 +553,11 @@ def main():
     if only and "tgen-1k-cpu" in only:
         tgen1k_cpu_phase(canonicalize_state)
 
-    # 7. in a second process on the same card, beside 8.-13.: its passes
-    # are host-bound, and the card serves two such processes at the
-    # speed of one (PERF.md §6)
+    # 17. and 7. in two more processes on the same card, beside 8.-16.:
+    # their passes are host-bound, and the card serves a few such
+    # processes at about the speed of one each (PERF.md §6)
+    faults = (Child(_socks10k_faults_child, "socks10k-faults")
+              if want("socks10k-faults") else None)
     tgen_cli = CliTgen() if want("cli-tgen") else None
     try:
         if want("log1p"):
@@ -549,11 +572,22 @@ def main():
             cli_tcp_phase(cli)
         if want("tgen-gpu=cpu"):
             tgen_gpu_cpu_phase(canonicalize_state)
+        if want("faults-demo"):
+            faults_demo_phase(cli)
+        if want("ckpt-gpu=cpu"):
+            ckpt_gpu_cpu_phase()
+        if want("cpu-model-gpu=cpu"):
+            cpu_model_gpu_cpu_phase()
         if tgen_cli:
             tgen_cli.finish()
+        if faults:
+            err, _ = faults.result()
+            if err:
+                fail(f"socks10k-faults: {err}")
     finally:
-        if tgen_cli:
-            tgen_cli.stop()
+        for child in (tgen_cli, faults):
+            if child:
+                child.stop()
 
     print(f"total wall {time.perf_counter() - t_all:.1f}s")
     print(json.dumps({"kernels": []}))
@@ -848,9 +882,9 @@ def _tgen_shapes():
         "tgen-server+bulk": (combo_scenario,
                              caps(qcap=32, scap=12, obcap=16, incap=24,
                                   txqcap=12, chunk_windows=8), 0),
-        # tgen-1k at 50 hosts, 4 sim-s: every client's first transfer
-        # and pause
-        "tgen-1k-at-50": (lambda: build_bulk_1k(50, stop=4),
+        # tgen-1k at 50 hosts, 3 sim-s (4 sim-s took 235.0 s on the
+        # card; the time pays for socks10k-faults)
+        "tgen-1k-at-50": (lambda: build_bulk_1k(50, stop=3),
                           lambda n: socks_caps(n, scap=32), 10),
         # tgen-1k, all 1,000 hosts, to 2.25 sim-s (6,205 passes; the CPU
         # half takes ~70 ms a pass)
@@ -912,6 +946,264 @@ def tgen1k_cpu_phase(canonicalize_state):
     tgen_gpu_cpu_phase(canonicalize_state, "tgen-1k-cpu", ("tgen-1k-2.25",))
 
 
+def _chain(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _snapshots(base):
+    """[(path, window start ns, windows, fault schedule position)] of the
+    store at `base`, oldest first."""
+    from shadow_tpu_torch.engine.checkpoint import CheckpointStore
+    out = []
+    for path in sorted(CheckpointStore(base).snapshots()):
+        with np.load(path) as z:
+            out.append((path, int(z["__wstart__"]), int(z["__windows__"]),
+                        int(z["__fault_idx__"])))
+    return out
+
+
+def _snapshot_inside(base, injector, t_in, t_out):
+    """The newest snapshot taken while the fault episode [t_in, t_out)
+    was on: every fault up to t_in applied, none from t_out."""
+    lo = sum(ev.t <= t_in for ev in injector.events)
+    hi = sum(ev.t < t_out for ev in injector.events)
+    inside = [s for s in _snapshots(base) if lo <= s[3] <= hi]
+    if not inside:
+        fail(f"no snapshot of {base} lies inside the fault episode "
+             f"[{t_in}, {t_out}) ns: {_snapshots(base)}")
+    return inside[-1]
+
+
+def faults_demo_phase(cli):
+    """14. examples/faults-demo.xml through the CLI, card and CPU."""
+    import tempfile
+    t0 = time.perf_counter()
+    xml = os.path.join(HERE, "examples", "faults-demo.xml")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in ("cuda", "cpu"):
+            chain = os.path.join(tmp, f"{dev}.jsonl")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli([xml, "--summary-json", "--digest", chain,
+                          "--device", dev])
+            s = json.loads(buf.getvalue().strip().splitlines()[-1])
+            out[dev] = (rc, s, _chain(chain))
+    (rc, s, gch), (crc, cs, cch) = out["cuda"], out["cpu"]
+    if rc or crc or s["device"] != "cuda":
+        fail(f"faults-demo: rc={rc}/{crc} {s}")
+    if gch != cch:
+        fail("faults-demo: the card's digest chain differs from the CPU's")
+    # pings at 2, 3, 6, 8 and 9 s answered; 4 and 5 s lost on the link
+    if (s["faults_applied"], s["drop_net"], s["transfers_done"]) != (4, 2, 5):
+        fail(f"faults-demo: unexpected fault effects: {s}")
+    phase("faults-demo", time.perf_counter() - t0, events=s["events"],
+          faults_applied=4, drop_net=2, pings_answered=5,
+          chain_records=gch.count(b"\n"), chains_equal=True)
+
+
+def ckpt_socks_scenario():
+    """Phase 11's multihop lossy SOCKS with relay1 down over
+    [2.2 s, 5.2 s), mid-transfer (its two RSTs free peers)."""
+    from shadow_tpu_torch.core.config import FaultSpec
+    scen = socks_scenario(0.02, 2, 90)
+    scen.faults = [FaultSpec(kind="host_down", at=2200 * 10**6,
+                             until=5200 * 10**6, host="relay1")]
+    return scen
+
+
+def ckpt_gpu_cpu_phase():
+    """15. checkpointed on the card, resumed on the CPU."""
+    import shutil
+    import tempfile
+
+    from shadow_tpu_torch.engine.sim import Simulation
+    from shadow_tpu_torch.engine.state import EngineConfig
+    t0 = time.perf_counter()
+    cfg = EngineConfig(num_hosts=8, qcap=32, scap=12, obcap=16, incap=24,
+                       txqcap=12, chunk_windows=8)
+    with tempfile.TemporaryDirectory() as tmp:
+        g, c, r = (os.path.join(tmp, f"{n}.jsonl") for n in "gcr")
+        base = os.path.join(tmp, "ck")
+        grep = Simulation(ckpt_socks_scenario(), engine_cfg=cfg,
+                          device="cuda").run(
+            digest=g, digest_every=8, checkpoint_path=base,
+            checkpoint_every_s=0.5, checkpoint_keep=50)
+        crep = Simulation(ckpt_socks_scenario(), engine_cfg=cfg,
+                          device="cpu").run(digest=c, digest_every=8)
+        snap = _snapshot_inside(base, Simulation(
+            ckpt_socks_scenario(), engine_cfg=cfg, device="cpu").injector,
+            2200 * 10**6, 5200 * 10**6)[0]
+        shutil.copy(g, r)
+        rrep = Simulation(ckpt_socks_scenario(), engine_cfg=cfg,
+                          device="cpu").run(digest=r, digest_every=8,
+                                            resume_from=snap)
+        if not (_chain(g) == _chain(c) == _chain(r)):
+            fail("ckpt-gpu=cpu: the resumed CPU chain, the uninterrupted "
+                 "CPU chain and the card's differ")
+        if not ((grep.stats == crep.stats).all()
+                and (rrep.stats == crep.stats).all()):
+            fail("ckpt-gpu=cpu: final stats differ")
+        if not grep.durability["rsts"] or not grep.summary()[
+                "transfers_done"]:
+            fail(f"ckpt-gpu=cpu: no RST or no transfer: "
+                 f"{grep.durability} {grep.summary()}")
+        with np.load(snap) as z:
+            snap_ns = int(z["__wstart__"])
+        phase("ckpt-gpu=cpu", time.perf_counter() - t0,
+              events=grep.events, windows=grep.windows,
+              rsts=grep.durability["rsts"],
+              transfers=grep.summary()["transfers_done"],
+              snapshot_sim_ns=snap_ns, chain_records=_chain(g).count(b"\n"),
+              chains_equal=True)
+
+
+def cpu_model_gpu_cpu_phase():
+    """16. tests/test_cpu_model.py's blocked-threshold shape: a 1 ms
+    cost per server event (30 MHz against the 3 GHz raw frequency) and
+    a 1 us threshold."""
+    import tempfile
+
+    from shadow_tpu_torch.core.config import HostSpec, ProcessSpec, Scenario
+    from shadow_tpu_torch.engine.sim import Simulation
+    from shadow_tpu_torch.engine.state import EngineConfig
+    t0 = time.perf_counter()
+
+    def scen():
+        s = Scenario(
+            stop_time=6 * 10**9,
+            topology_graphml=poi_topology(bw_down=10240, latency_ms=25.0),
+            hosts=[
+                HostSpec(id="srv", cpu_frequency=30_000, processes=[
+                    ProcessSpec(plugin="pingserver", start_time=10**9,
+                                arguments="port=8000")]),
+                HostSpec(id="cli", processes=[
+                    ProcessSpec(plugin="ping", start_time=2 * 10**9,
+                                arguments="peer=srv port=8000 "
+                                          "interval=500ms size=64 "
+                                          "count=5")])])
+        s.cpu_threshold_ns = 1000
+        s.cpu_precision_ns = 1000
+        return s
+
+    cfg = EngineConfig(num_hosts=2, qcap=16, scap=4, obcap=8, incap=16,
+                       chunk_windows=8)
+    reps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in ("cuda", "cpu"):
+            sim = Simulation(scen(), engine_cfg=cfg, device=dev)
+            chain = os.path.join(tmp, f"{dev}.jsonl")
+            reps[dev] = (sim, sim.run(digest=chain, digest_every=1),
+                         _chain(chain))
+    (gsim, g, gch), (_, c, cch) = reps["cuda"], reps["cpu"]
+    s = g.summary()
+    if not gsim.cfg.cpu_model or gch != cch or not (g.stats == c.stats).all():
+        fail("cpu-model-gpu=cpu: the card and the CPU differ")
+    if s["transfers_done"] != 5 or s["mean_rtt_us"] <= 50_000:
+        fail(f"cpu-model-gpu=cpu: the CPU model did not delay: {s}")
+    phase("cpu-model-gpu=cpu", time.perf_counter() - t0,
+          events=s["events"], mean_rtt_us=s["mean_rtt_us"],
+          chain_records=gch.count(b"\n"), chains_equal=True)
+
+
+# socks10k-faults stop time (sim-s; the bench runs 10): traffic starts at
+# 2 s and the fault episodes lie in [2.2 s, 2.9 s)
+SOCKS_FAULTS_STOP_S = 3.0
+# snapshot cadence (sim-s, from the first event at 1 s): the first
+# snapshot lands at the first chunk boundary past 1.75 s (~2.06 s, no
+# fault yet), the second at the first boundary whose window start is
+# past 2.5 s. The fetch wave ends by ~2.3 s, so after the host_down
+# batch the next event is at 3.0 s: the second save comes at the 2.4 s
+# fault boundary, before that fault applies, with the loss and
+# host_down episodes on
+SOCKS_FAULTS_CKPT_S = 0.75
+SOCKS_FAULTS_KEEP = 2
+
+
+def socks10k_faults_sim():
+    """socks10k to SOCKS_FAULTS_STOP_S under phase 17's fault schedule."""
+    from shadow_tpu_torch.baseline_configs import (apply_runahead,
+                                                   build_socks, socks_caps)
+    from shadow_tpu_torch.core.config import FaultSpec
+    from shadow_tpu_torch.engine.sim import Simulation
+    ms = 10**6
+    scen = build_socks(10_000, hops=1, stop=SOCKS_FAULTS_STOP_S, count=0,
+                       pause="5s")
+    scen.faults = [FaultSpec(kind="host_down", at=2300 * ms,
+                             until=2700 * ms, host=f"relay{i}")
+                   for i in range(1, 51)] + [
+        FaultSpec(kind="loss", at=2200 * ms, until=2800 * ms, rate=0.05,
+                  src="relay51", dst="server1"),
+        FaultSpec(kind="latency", at=2400 * ms, until=2900 * ms,
+                  extra_ns=5 * ms, src="client1", dst="relay52")]
+    return apply_runahead(Simulation(scen, engine_cfg=socks_caps(10_000, 96),
+                                     device="cuda"), 10)
+
+
+def socks10k_faults_phase(defs):
+    """17. faulted socks10k, checkpointed, and resumed from inside the
+    fault episodes (in a child process beside phases 7-16)."""
+    import shutil
+    import tempfile
+
+    from shadow_tpu_torch.apps.base import APP_SOCKS_CLIENT
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "a.jsonl"), os.path.join(tmp, "b.jsonl")
+        base = os.path.join(tmp, "ck")
+        sim = socks10k_faults_sim()
+        rep = sim.run(digest=a, digest_every=16, checkpoint_path=base,
+                      checkpoint_every_s=SOCKS_FAULTS_CKPT_S,
+                      checkpoint_keep=SOCKS_FAULTS_KEEP)
+        s, d = rep.summary(), rep.durability
+        clients = rep.stats[(sim.hp.app_kind[:, 0] == APP_SOCKS_CLIENT)
+                            .cpu().numpy()]
+        out = dict(rates(rep), stop_sim_s=SOCKS_FAULTS_STOP_S,
+                   faults_applied=s["faults_applied"], rsts=d["rsts"],
+                   clients_done=int((clients[:, defs.ST_XFER_DONE] > 0)
+                                    .sum()),
+                   transfers_done=s["transfers_done"], drop_q=s["drop_q"],
+                   drop_net=s["drop_net"],
+                   snapshots=[{k: (round(v, 3) if k == "wall_s" else v)
+                               for k, v in x.items() if k != "file"}
+                              for x in d["saves"]],
+                   digest_records=d["digest_records"],
+                   digest_bytes=d["digest_bytes"],
+                   digest_ms_per_record=round(
+                       d["digest_wall_s"] * 1e3 / d["digest_records"], 3))
+        print(f"  socks10k-faults run A: {json.dumps(out)}", flush=True)
+        if s["faults_applied"] != 104 or not d["rsts"] or s["drop_q"]:
+            fail(f"socks10k-faults: fault schedule not applied as built, "
+                 f"no RST sent, or queue drops: {out}")
+        if not out["clients_done"]:
+            fail("socks10k-faults: no client completed a fetch")
+        with open(a) as f:
+            timeline = [(r["window"], r["sim_ns"], r["kind"][0]) for r in
+                        map(json.loads, f.read().splitlines())]
+        print(f"  socks10k-faults chain (window, sim_ns, kind): "
+              f"{json.dumps(timeline, separators=(',', ':'))}")
+        print(f"  socks10k-faults snapshots (wstart, windows, fault_idx): "
+              f"{[x[1:] for x in _snapshots(base)]}", flush=True)
+        snap, snap_ns, snap_w, snap_f = _snapshot_inside(
+            base, sim.injector, 2300 * 10**6, 2700 * 10**6)
+        shutil.copy(a, b)
+        simb = socks10k_faults_sim()
+        repb = simb.run(digest=b, digest_every=16, resume_from=snap)
+        same = _chain(a) == _chain(b)
+        if not same or not (repb.stats == rep.stats).all() or \
+                repb.faults != rep.faults:
+            fail(f"socks10k-faults: run B (resumed at {snap_ns} ns) "
+                 f"differs from run A: chain equal {same}")
+        phase("socks10k-faults", time.perf_counter() - t0,
+              run_a_wall_s=round(rep.wall_seconds, 3),
+              resumed_at_ns=snap_ns, resumed_at_window=snap_w,
+              resumed_at_fault=f"{snap_f}/{len(sim.injector.events)}",
+              load_s=round(repb.durability["load_s"], 3),
+              run_b=json.dumps(rates(repb)), chains_equal=True,
+              stats_equal=True)
+
+
 def _cli_tgen_child(conn):
     """A child process: examples/tgen-web-bulk.xml through the CLI on the
     card, from the repository root (its graph paths are relative to the
@@ -943,24 +1235,44 @@ def _cli_tgen_child(conn):
         raise
 
 
-class CliTgen:
-    """7. cli-tgen, run by a child process while phases 8-13 run:
-    every web host completes 10 transfers and every bulk host 5."""
+class Child:
+    """A phase run by a spawned child process on the same card while the
+    main process runs others: its passes are host-bound, and the card
+    serves a few such processes at about the speed of one (PERF.md §6).
+    `target(conn)` sends one result through `conn`."""
 
-    def __init__(self):
+    def __init__(self, target, name):
         import multiprocessing as mp
         ctx = mp.get_context("spawn")
+        self.name = name
         self.conn, child = ctx.Pipe(duplex=False)
-        self.proc = ctx.Process(target=_cli_tgen_child, args=(child,))
+        self.proc = ctx.Process(target=target, args=(child,))
         self.proc.start()
 
-    def finish(self):
+    def result(self):
+        """Wait for the child's result -> (it, seconds waited)."""
         t0 = time.perf_counter()
         while not self.conn.poll(1):
             if not self.proc.is_alive() and not self.conn.poll(0):
-                fail(f"cli tgen-web-bulk: its process exited "
+                fail(f"{self.name}: its process exited "
                      f"{self.proc.exitcode} with no result")
-        rc, s, xfer, wall = self.conn.recv()
+        return self.conn.recv(), time.perf_counter() - t0
+
+    def stop(self):
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join()
+
+
+class CliTgen(Child):
+    """7. cli-tgen, run by a child process while phases 8-16 run:
+    every web host completes 10 transfers and every bulk host 5."""
+
+    def __init__(self):
+        super().__init__(_cli_tgen_child, "cli tgen-web-bulk")
+
+    def finish(self):
+        (rc, s, xfer, wall), waited = self.result()
         if s is None:
             fail(f"cli tgen-web-bulk: {rc}")
         want = {n: 10 if n.startswith("web") else 5 for n in xfer
@@ -969,16 +1281,22 @@ class CliTgen:
         if rc != 0 or s["device"] != "cuda" or short or not s["drop_net"]:
             fail(f"cli tgen-web-bulk: rc={rc} hosts short of their "
                  f"transfers {short} {s}")
-        phase("cli-tgen", wall, waited_s=round(time.perf_counter() - t0, 3),
+        phase("cli-tgen", wall, waited_s=round(waited, 3),
               events=s["events"], windows=s["windows"], passes=s["passes"],
               transfers=s["transfers_done"], drop_net=s["drop_net"],
               retransmits=s["retransmits"],
               per_host=json.dumps(xfer, separators=(",", ":")))
 
-    def stop(self):
-        if self.proc.is_alive():
-            self.proc.terminate()
-        self.proc.join()
+
+def _socks10k_faults_child(conn):
+    """A child process: phase 17 -> None, or the failure."""
+    from shadow_tpu_torch.engine import defs
+    try:
+        socks10k_faults_phase(defs)
+        conn.send(None)
+    except BaseException as e:
+        conn.send(f"{type(e).__name__}: {e}")
+        raise
 
 
 if __name__ == "__main__":

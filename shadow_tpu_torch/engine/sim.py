@@ -4,13 +4,17 @@ Counterpart of ``shadow_tpu/engine/sim.py``: loads the scenario, builds
 the topology oracle and DNS, registers hosts and their processes in the
 reference's order (topology -> attach -> DNS -> ``compile_app`` ->
 ``make_shared``/``alloc_hosts`` -> the initial WAKE_START pushes, one
-per process slot), then drives the window loop ``chunk_windows``
-windows at a time.
+per process slot), compiles the fault schedule, then drives the window
+loop ``chunk_windows`` windows at a time. Between chunks the loop
+applies faults at their exact times, writes crash-safe checkpoints,
+records the determinism digest chain and honours a preemption request.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import threading
 import time as _time
 from dataclasses import dataclass, field
 
@@ -32,9 +36,36 @@ from ..routing.dns import DNS
 from ..routing.topology import Topology, attach_hosts, build_topology
 from . import defs
 from .defs import EV_APP, WAKE_START
+from . import checkpoint as ckpt
+from .faults import CrashHook, FaultInjector, compile_faults
 from .state import (EngineConfig, HostParams, alloc_hosts, check_supported,
                     make_shared)
-from .window import run_windows
+from .window import next_wakeup, run_windows
+
+
+class Preempted(RuntimeError):
+    """Raised by run() after a preemption request (``request_preempt``;
+    the CLI's SIGTERM handler under ``--checkpoint``): the loop stopped
+    at the next chunk boundary, saving a snapshot first when a
+    checkpoint store is active. The CLI exits 75 for it."""
+
+    def __init__(self, sim_ns: int, saved: bool):
+        self.sim_ns = int(sim_ns)
+        self.saved = bool(saved)
+        what = ("snapshot saved" if saved
+                else "no checkpoint store — nothing saved")
+        super().__init__(f"run preempted at sim_ns={sim_ns} ({what})")
+
+
+# process-wide preemption flag, safe to set from a signal handler;
+# run() clears it on entry
+_PREEMPT = threading.Event()
+
+
+def request_preempt():
+    """Ask the running simulation to checkpoint at the next chunk
+    boundary and raise Preempted."""
+    _PREEMPT.set()
 
 
 @dataclass
@@ -48,6 +79,11 @@ class SimReport:
     capacity: dict = field(default_factory=dict)
     device: str = ""           # where the run executed (torch device)
     passes: int = 0            # drain passes over all windows
+    faults: list = field(default_factory=list)  # applied fault events
+    #   in execution order (FaultInjector.log)
+    durability: dict = field(default_factory=dict)  # checkpoint saves
+    #   (file, bytes, wall), the resume load wall, digest records,
+    #   bytes hashed and record wall; RSTs radiated by host faults
 
     def total(self, stat: int) -> int:
         return int(self.stats[:, stat].sum())
@@ -116,7 +152,7 @@ class SimReport:
             "mean_rtt_us": mean_rtt_us,
             "device": self.device,
             "passes": self.passes,
-        }
+        } | ({"faults_applied": len(self.faults)} if self.faults else {})
 
 
 def auto_engine_config(scenario: Scenario, topo: Topology) -> EngineConfig:
@@ -169,10 +205,6 @@ class Simulation:
         self.scenario = scenario
         seed = scenario.seed if seed is None else seed
         self.seed = seed
-        if scenario.faults:
-            raise NotImplementedError(
-                "fault injection is not ported to shadow_tpu_torch yet "
-                "(ROADMAP A8)")
 
         src = topology or scenario.topology_graphml or scenario.topology_path
         self.topo = src if isinstance(src, Topology) else build_topology(src)
@@ -278,6 +310,21 @@ class Simulation:
                 tracecap=chunk * (self.cfg.obcap + self.cfg.incap))
         check_supported(self.cfg)
 
+        # the fault schedule: compiled here so bad configs fail at
+        # build, applied by the run loop at exact sim times
+        self.injector = None
+        if scenario.faults:
+            events = compile_faults(
+                scenario.faults,
+                {name: idx for idx, name, _ in scenario.expand_hosts()},
+                vertex, topo=self.topo, stop_time=scenario.stop_time)
+            procs_of_host = {
+                int(h): [int(p) for p in np.flatnonzero(has_app[h])]
+                for h in range(H) if has_app[h].any()}
+            self.injector = FaultInjector(
+                events, self.topo.latency_ns, self.topo.reliability,
+                vertex, procs_of_host, names)
+
         dev = self.device
 
         def t(a, dt):
@@ -332,30 +379,188 @@ class Simulation:
         self.hosts.eq_next.copy_(t(eq_time.min(axis=1), torch.int64))
         self._ran = False
 
-    def run(self, clock=None) -> SimReport:
-        """Run to the stop time, `chunk_windows` windows per call of the
-        window loop. The state tensors are updated in place; the final
-        state stays in ``self.hosts``. `clock` is passed to
-        ``window.run_windows`` (per-phase wall split)."""
+    def run(self, clock=None, checkpoint_path: str = None,
+            checkpoint_every_s: float = 0, checkpoint_keep: int = 0,
+            resume_from: str = None, resume_unchecked: bool = False,
+            digest: str = None, digest_every: int = 0,
+            digest_context: dict = None,
+            digest_rewind: bool = True) -> SimReport:
+        """Run to the stop time. The state tensors are updated in place;
+        the final state stays in ``self.hosts``. `clock` is passed to
+        ``window.run_windows`` (per-phase wall split).
+
+        `checkpoint_path` + `checkpoint_every_s` write snapshots into a
+        crash-safe rotating store (``engine.checkpoint``; the last
+        `checkpoint_keep`, default 3, are kept); `resume_from` restores
+        one (a .npz, or a store base for its newest valid snapshot) and
+        re-arms the fault schedule. `resume_unchecked` downgrades the
+        fingerprint check to a warning.
+
+        `digest` appends the determinism digest chain (``obs.digest``)
+        every `digest_every` windows (default 64), at every fault batch
+        and at the end, plus ``<digest>.manifest.json``; the chunk
+        shrinks to the cadence. On resume the chain file is rewound to
+        the snapshot's stamped position, so the finished chain equals
+        an uninterrupted run's; `digest_rewind=False` records a fresh
+        chain of the resumed tail instead. An already installed
+        recorder takes this run's records and the path is ignored."""
         if self._ran:
             raise RuntimeError("Simulation objects are single-use")
         self._ran = True
+        # a preemption flag left by an earlier run must not stop this one
+        _PREEMPT.clear()
+        from ..obs import digest as DG
+        own_dg = False
+        if digest is not None:
+            if not DG.ENABLED:
+                DG.install(digest, every=digest_every or DG.DEFAULT_EVERY,
+                           context=digest_context)
+                own_dg = True
+            else:
+                import sys
+                sys.stderr.write(
+                    "shadow_tpu_torch: warning: a digest recorder is "
+                    "already installed process-wide; the path passed to "
+                    "run() is ignored\n")
+        try:
+            return self._run_impl(clock, checkpoint_path,
+                                  checkpoint_every_s, checkpoint_keep,
+                                  resume_from, resume_unchecked,
+                                  digest_rewind)
+        finally:
+            if own_dg:
+                DG.finish()
+
+    def _run_impl(self, clock, checkpoint_path, checkpoint_every_s,
+                  checkpoint_keep, resume_from, resume_unchecked,
+                  digest_rewind) -> SimReport:
+        from ..obs import digest as DG
+        dg = DG.RECORDER if DG.ENABLED else None
         st, hp, sh, cfg = self.hosts, self.hp, self.sh, self.cfg
+        H = cfg.num_hosts
+        inj = self.injector
+        narrow = not cfg.wide_state
+        durability = {"saves": [], "load_s": None}
+        if checkpoint_path and not checkpoint_every_s:
+            raise ValueError(
+                "checkpoint_path requires checkpoint_every_s > 0 "
+                "(otherwise no snapshot would ever be written)")
+        fingerprint = ckpt.scenario_fingerprint(self.scenario, cfg,
+                                                self.seed)
+        store = (ckpt.CheckpointStore(checkpoint_path,
+                                      keep=checkpoint_keep)
+                 if checkpoint_path else None)
+        crash = CrashHook.from_env()
+        if dg is not None:
+            dg.write_manifest(DG.build_manifest(
+                self.scenario, cfg, self.seed, sh, self.host_names, dg,
+                self.device, checkpoint_path=checkpoint_path,
+                faults=inj is not None))
+        # records land on exact window boundaries
+        chunk = min(cfg.chunk_windows, dg.every) if dg else cfg.chunk_windows
+        # the real stop time: a segment's Shared may carry the next
+        # fault's time as its stop time instead
         stop_ns = int(sh.stop_time)
         min_jump = int(sh.min_jump)
+
+        def window_after(nt):
+            return nt, (SIMTIME_MAX if nt == SIMTIME_MAX else nt + min_jump)
+
+        ws, we = window_after(int(st.eq_next.min()))
+        total_windows = passes = 0
+
+        if resume_from:
+            t0 = _time.perf_counter()
+            snap = ckpt.load(resume_from, st, fingerprint,
+                             strict=not resume_unchecked, narrow=narrow)
+            for name, arr in snap.hosts.items():
+                getattr(st, name).copy_(torch.from_numpy(arr))
+            ws, we, total_windows = snap.wstart, snap.wend, snap.windows
+            if inj is not None:
+                if snap.fault_idx < 0:
+                    raise ValueError(
+                        "snapshot records no fault schedule position "
+                        "(__fault_idx__); it was taken by a run "
+                        "without this fault config — refusing to "
+                        "resume into one")
+                sh = inj.fast_forward(snap.fault_idx, sh)
+            self._sync()
+            durability["load_s"] = _time.perf_counter() - t0
+
+        def dg_record(kind, window, sim_ns):
+            dg.record(st, H, window, sim_ns, kind)
+
+        if dg is not None:
+            if resume_from and snap.digest_records >= 0 and digest_rewind:
+                dg.rewind(snap.digest_records, snap.digest_chain)
+                if dg.due(total_windows):
+                    # the cadence record due at the snapshot's own
+                    # boundary, which the crashed attempt never wrote
+                    dg_record("cadence", total_windows, min(ws, stop_ns))
+            else:
+                dg.begin_run(total_windows)
+
+        every_ns = int(checkpoint_every_s * 10**9) if store else 0
+        ckpt_at = ws + every_ns if every_ns else None
+
+        def save_snapshot(ws_now):
+            # stamps the fault schedule and chain positions, so records
+            # and faults after this save are re-produced on resume
+            t0 = _time.perf_counter()
+            path = store.save(
+                st, ws_now, we, total_windows, fingerprint,
+                fault_idx=inj.i if inj is not None else -1,
+                digest_records=len(dg.records) if dg is not None else -1,
+                digest_chain=dg.chain_hex if dg is not None else None,
+                narrow=narrow)
+            durability["saves"].append(
+                {"file": path, "bytes": os.path.getsize(path),
+                 "wall_s": _time.perf_counter() - t0, "sim_ns": ws_now})
+
         self._sync()
         wall0 = _time.perf_counter()
-        t0 = int(st.eq_next.min())
-        ws = t0
-        we = t0 if t0 == SIMTIME_MAX else t0 + min_jump
-        total_windows = passes = 0
         while True:
-            ws, we, n, npass = run_windows(st, hp, sh, ws, we, cfg,
-                                           cfg.chunk_windows, clock=clock)
+            if _PREEMPT.is_set():
+                saved = store is not None
+                if saved:
+                    save_snapshot(ws)
+                raise Preempted(min(ws, stop_ns), saved)
+            # bound this segment at the next fault: the engine runs every
+            # event before it, then the fault applies at its exact time
+            sh_seg = sh
+            nf = inj.next_time() if inj is not None else None
+            if nf is not None and nf < stop_ns:
+                sh_seg = dataclasses.replace(
+                    sh, stop_time=sh.stop_time.new_tensor(nf))
+            ws, we, n, npass = run_windows(st, hp, sh_seg, ws, we, cfg,
+                                           chunk, clock=clock)
             total_windows += n
             passes += npass
-            if ws >= stop_ns or ws >= SIMTIME_MAX:
+            if store is not None and ws >= ckpt_at:
+                save_snapshot(ws)
+                ckpt_at += every_ns
+            if crash is not None:
+                crash.maybe_fire(ws)
+            if dg is not None and dg.due(total_windows):
+                dg_record("cadence", total_windows, min(ws, stop_ns))
+            if nf is not None and nf < stop_ns and ws >= nf:
+                sh = inj.apply_batch(st, sh)
+                # a kill's RSTs and a restart's starts may open a window
+                # before the old one
+                ws, we = window_after(next_wakeup(st))
+                if dg is not None:
+                    dg_record("fault", total_windows, nf)
+            # a pending fault keeps the loop alive after the queues drain
+            more_faults = (inj is not None and inj.next_time() is not None
+                           and inj.next_time() < stop_ns)
+            if (ws >= stop_ns or ws >= SIMTIME_MAX) and not more_faults:
                 break
+        if dg is not None:
+            dg_record("final", total_windows,
+                      min(stop_ns, ws) if ws < SIMTIME_MAX else stop_ns)
+            durability.update(digest_records=len(dg.records),
+                              digest_bytes=dg.bytes_hashed,
+                              digest_wall_s=dg.record_wall)
         stats = st.stats.cpu().numpy()
         self._sync()
         wall = _time.perf_counter() - wall0
@@ -368,10 +573,14 @@ class Simulation:
         ]}
         sim_ns = min(stop_ns, ws) if ws < SIMTIME_MAX else stop_ns
         self.final_hosts = st
+        if inj is not None:
+            durability["rsts"] = inj.rsts
         return SimReport(stats=stats, host_names=self.host_names,
                          sim_time_ns=sim_ns, wall_seconds=wall,
                          windows=total_windows, capacity=capacity,
-                         device=str(self.device), passes=passes)
+                         device=str(self.device), passes=passes,
+                         faults=list(inj.log) if inj is not None else [],
+                         durability=durability)
 
     def _sync(self):
         if self.device.type == "cuda":

@@ -5,8 +5,11 @@ whole simulation:
 
 - :class:`Hosts` — every mutable per-host tensor, leading dim H, with
   the reference's 82 field names, order, dtypes and shapes in its
-  WIDE layout (``wide_state=1``; the narrow at-rest codec is not
-  ported). The window loop updates these tensors in place.
+  WIDE layout. The window loop updates these tensors in place. The
+  reference's narrow at-rest layout (``NARROW_SPEC``, its default
+  ``wide_state=0``) exists here only as a numpy codec
+  (``narrow_arrays``/``widen_arrays``) that checkpoints use on save
+  and load, so snapshots pass between the two packages.
 - :class:`HostParams` — read-only per-host configuration.
 - :class:`Shared` — replicated tables and scalars: the vertex-by-vertex
   latency/reliability oracle, seed, stop time, lookahead window.
@@ -14,9 +17,10 @@ whole simulation:
 :class:`EngineConfig` carries every reference field, so configs and
 fingerprints carry over. Knobs that only shape the reference's
 lockstep schedule (``active_block``, ``event_batch``, ``hot_split``,
-``exsortcap``, ``dstcap``, ``wide_state``, ``exchange_a2a``,
-``a2acap``) are accepted and have no effect here: the reference holds
-every setting of them bit-identical.
+``exsortcap``, ``dstcap``, ``exchange_a2a``, ``a2acap``) are accepted
+and have no effect here: the reference holds every setting of them
+bit-identical. ``wide_state`` picks the layout a checkpoint is stored
+in; the device state is always wide.
 """
 
 from __future__ import annotations
@@ -75,13 +79,132 @@ def check_supported(cfg: EngineConfig):
         missing.append("the network observatory (netscope; ROADMAP A7)")
     if cfg.tracecap > 0:
         missing.append("the packet-trace ring (tracecap; ROADMAP A7)")
-    if cfg.cpu_model:
-        missing.append("the host CPU model (cpu_model; ROADMAP A8)")
     if cfg.hostedcap > 1:
         missing.append("hosted applications (hostedcap; ROADMAP A9)")
     if missing:
         raise NotImplementedError(
             "not ported to shadow_tpu_torch yet: " + "; ".join(missing))
+
+
+# Digest sections (obs.digest): Hosts field prefix -> the named state
+# section a divergence report attributes to; fields matching no prefix
+# digest under "other".
+STATE_SECTIONS = (
+    ("eq_", "event_queue"),
+    ("rng_ctr", "rng"),
+    ("cpu_avail", "cpu"),
+    ("nic_", "nic"),
+    ("txq_", "nic"),
+    ("pkt_ctr", "nic"),
+    ("next_eport", "nic"),
+    ("sk_", "tcp"),
+    ("app_", "app"),
+    ("tgen_sync", "app"),
+    ("ob_", "outbox"),
+    ("hw_", "hosted_wakes"),
+    ("tr_", "trace_ring"),
+    ("stats", "stats"),
+    ("ns_", "netscope"),
+    ("cap_peaks", "stats"),
+)
+
+
+def section_of(field: str, *, strict: bool = False) -> str:
+    """Digest section for a Hosts field; with strict=True an unmapped
+    field raises instead of landing in "other"."""
+    for prefix, section in STATE_SECTIONS:
+        if field.startswith(prefix):
+            return section
+    if strict:
+        raise KeyError(
+            f"Hosts field {field!r} matches no STATE_SECTIONS prefix; "
+            "add a (prefix, section) entry next to the field")
+    return "other"
+
+
+# The reference's narrow at-rest layout (its default, wide_state=0):
+# (field, wide dtype, narrow dtype, encoding, bound, why). "abs" columns
+# are cast; "rel:<anchor>" scoreboards are stored as offsets from their
+# anchor column, with the -1 free-slot sentinel kept. Every bound is
+# the reference's machine-checked one, so the round trip is exact.
+NARROW_SPEC = (
+    ("sk_ooo_s", "i64", "i32", "rel:sk_rcv_nxt", 1073741824,
+     "receiver OOO runs lie in (rcv_nxt, rcv_nxt + rcvbuf]; "
+     "rcvbuf <= buf_cap = 2^30"),
+    ("sk_ooo_e", "i64", "i32", "rel:sk_rcv_nxt", 1073741824,
+     "run ends share the OOO window bound"),
+    ("sk_sack_s", "i64", "i32", "rel:sk_snd_una", 1073741824,
+     "sender SACK runs lie in [snd_una, snd_una + sndbuf + rwnd)"),
+    ("sk_sack_e", "i64", "i32", "rel:sk_snd_una", 1073741824,
+     "run ends share the SACK window bound"),
+    ("sk_snd_una", "i64", "i32", "abs", 2147483647,
+     "the wire's i32 SEQ/ACK bounds every absolute stream offset"),
+    ("sk_snd_nxt", "i64", "i32", "abs", 2147483647, "wire i32 SEQ"),
+    ("sk_snd_max", "i64", "i32", "abs", 2147483647, "wire i32 SEQ"),
+    ("sk_snd_end", "i64", "i32", "abs", 2147483647,
+     "app write cursor; flow control caps it at snd_una + sndbuf"),
+    ("sk_rcv_nxt", "i64", "i32", "abs", 2147483647, "wire i32 ACK"),
+    ("sk_hole_end", "i64", "i32", "abs", 2147483647,
+     "recovery point: a snapshot of snd_max"),
+    ("sk_rex_nxt", "i64", "i32", "abs", 2147483647,
+     "retransmit cursor within [snd_una, snd_max]"),
+    ("sk_peer_fin", "i64", "i32", "abs", 2147483647,
+     "peer FIN stream offset (-1 when unset)"),
+    ("sk_rtt_seq", "i64", "i32", "abs", 2147483647,
+     "RTT-sampled SEQ (-1 between samples)"),
+    ("sk_peer_rwnd", "i64", "i32", "abs", 1073741824,
+     "peer-advertised window, clamped to buf_cap = 2^30"),
+    ("sk_sndbuf", "i64", "i32", "abs", 1073741824,
+     "send buffer, autotuned within [min, 2^30]"),
+    ("sk_rcvbuf", "i64", "i32", "abs", 1073741824,
+     "receive buffer, autotuned within [min, 2^30]"),
+    ("sk_proto", "i32", "i8", "abs", 17, "IPPROTO id"),
+    ("sk_state", "i32", "i8", "abs", 10, "TCPS_* enum"),
+    ("sk_ctl", "i32", "i8", "abs", 31, "pending-control bitmask"),
+    ("sk_lport", "i32", "u16", "abs", 65535, "ports <= 65535"),
+    ("sk_rport", "i32", "u16", "abs", 65535, "ports <= 65535"),
+)
+
+_DTYPES = {"i8": "int8", "i16": "int16", "u16": "uint16",
+           "i32": "int32", "i64": "int64"}
+NARROW_ABS = {f: (_DTYPES[w], _DTYPES[n])
+              for f, w, n, enc, _b, _y in NARROW_SPEC if enc == "abs"}
+NARROW_REL = {f: (_DTYPES[w], _DTYPES[n], enc.split(":", 1)[1])
+              for f, w, n, enc, _b, _y in NARROW_SPEC if enc != "abs"}
+
+
+def at_rest_dtype(field: str, dtype, narrow: bool) -> np.dtype:
+    """The dtype a snapshot stores `field` in."""
+    spec = NARROW_ABS.get(field) or NARROW_REL.get(field)
+    return np.dtype(spec[1] if narrow and spec else dtype)
+
+
+def narrow_arrays(arrs: dict) -> dict:
+    """Wide numpy Hosts arrays -> the narrow at-rest layout (the
+    reference's ``narrow_state`` on the host)."""
+    a = dict(arrs)
+    for f, (_w, ndt, anchor) in NARROW_REL.items():
+        s = arrs[f]
+        a[f] = np.where(s >= 0, s - arrs[anchor][..., None],
+                        np.array(-1, s.dtype)).astype(ndt)
+    for f, (_w, ndt) in NARROW_ABS.items():
+        a[f] = arrs[f].astype(ndt)
+    return a
+
+
+def widen_arrays(arrs: dict) -> dict:
+    """Narrow numpy Hosts arrays -> the wide layout (the reference's
+    ``widen_state``); identity on wide arrays. The abs columns widen
+    first: they anchor the scoreboards."""
+    a = dict(arrs)
+    for f, (wdt, _n) in NARROW_ABS.items():
+        a[f] = arrs[f].astype(wdt)
+    for f, (wdt, _n, anchor) in NARROW_REL.items():
+        rel = arrs[f]
+        if rel.dtype != np.dtype(wdt):
+            a[f] = np.where(rel >= 0, rel.astype(wdt) + a[anchor][..., None],
+                            np.array(-1, wdt))
+    return a
 
 
 @dataclass

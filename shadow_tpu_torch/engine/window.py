@@ -8,6 +8,10 @@ Counterpart of ``shadow_tpu/engine/window.py``. Each window does:
    handler on exactly the rows holding that kind (a ``[H]`` mask per
    kind, so every row's result is what its own branch gives), then
    chains a due-now NIC-TX, as the reference's ``step_one_host`` does.
+   Under the CPU model (``cfg.cpu_model``) an event whose host CPU is
+   busy past its threshold is pushed back to when the CPU drains, each
+   event that runs charges its cost to the CPU, and no NIC-TX is
+   chained.
 2. **cap_peaks** — peak occupancy of the fixed-capacity arrays.
 3. **exchange** — route the outboxes, roll for loss, stable-sort by
    destination, merge into the destination queues, carry the rest.
@@ -33,7 +37,7 @@ import torch
 from ..apps.base import (N_APP_KINDS, N_BRANCHES, branch_of, dispatch,
                          process_of)
 from ..core import rng as R
-from ..core.rowops import col_add, rget
+from ..core.rowops import col_add, rget, set_where
 from ..core.simtime import SIMTIME_MAX
 from ..net import nic
 from ..net import packet as P
@@ -112,20 +116,24 @@ def _tcp_features(st, kind, pkt, t):
     ])
 
 
-def _pass_flags(st, kind, app_kind, branch, pkt, t, cfg: EngineConfig):
+def _pass_flags(st, kind, app_kind, branch, pkt, t, cfg: EngineConfig,
+                blocked=None):
     """Which codes at least one row holds this pass -> (set of codes,
-    set of TCP parts; empty when the config has no TCP). The one host
-    sync of the pass (rows with no ready event hold EV_NULL)."""
+    set of TCP parts; empty when the config has no TCP; whether any row
+    is CPU-blocked, under the CPU model). The one host sync of the pass
+    (rows with no ready event hold EV_NULL)."""
     code = torch.where(kind == EV_APP, _app_code(app_kind, branch), kind)
     present = torch.zeros(_N_CODES, dtype=torch.int32, device=kind.device)
     present.scatter_(0, code.to(torch.int64), 1)
     if cfg.uses_tcp:
         feats = _tcp_features(st, kind, pkt, t).any(1).to(torch.int32)
         present = torch.cat([present, feats])
+    if blocked is not None:
+        present = torch.cat([present, blocked.any().to(torch.int32)[None]])
     vals = present.tolist()
     codes = {i for i, v in enumerate(vals[:_N_CODES]) if v}
     parts = {n for n, v in zip(_TCP_PARTS, vals[_N_CODES:]) if v}
-    return codes, parts
+    return codes, parts, blocked is not None and bool(vals[-1])
 
 
 def step_all_hosts(st, hp, sh, wend: int, cfg: EngineConfig) -> bool:
@@ -143,12 +151,24 @@ def step_all_hosts(st, hp, sh, wend: int, cfg: EngineConfig) -> bool:
     if cfg.procs_per_host > 1:
         proc = process_of(st, pkt)
         app_kind = rget(hp.app_kind, proc)
-    flags, parts = _pass_flags(st, kind, app_kind, branch_of(pkt), pkt, t,
-                               cfg)
+    blocked = None
+    if cfg.cpu_model:
+        # the reference's CPU model: an event whose host CPU is busy
+        # past the threshold is pushed to when the CPU drains
+        blocked = (ready & (hp.cpu_threshold >= 0)
+                   & (st.cpu_avail - t > hp.cpu_threshold))
+        ready = ready & ~blocked
+        pop_kind, kind = kind, torch.where(blocked, EV_NULL, kind)
+    flags, parts, any_blocked = _pass_flags(
+        st, kind, app_kind, branch_of(pkt), pkt, t, cfg, blocked)
     flags.discard(EV_NULL)
-    if not flags:
+    if not flags and not any_blocked:
         return False
 
+    if any_blocked:
+        equeue.q_clear_slot(st, blocked, slot)
+        equeue.q_push(st, blocked, torch.maximum(st.cpu_avail, t + 1),
+                      pop_kind, pkt)
     equeue.q_clear_slot(st, ready, slot)
     apps = {((c - N_EVENT_KINDS) // N_BRANCHES,
              (c - N_EVENT_KINDS) % N_BRANCHES)
@@ -165,6 +185,14 @@ def step_all_hosts(st, hp, sh, wend: int, cfg: EngineConfig) -> bool:
                          expired="rto" in parts)
     if cfg.uses_tcp and EV_TCP_CLOSE in flags:
         tcp.on_tcp_close(st, hp, sh, kind == EV_TCP_CLOSE, t, wend, pkt)
+
+    if cfg.cpu_model:
+        # every pop re-checks the CPU, so no NIC-TX is chained; the
+        # event's cost is charged to the busy horizon
+        set_where(st.cpu_avail, ready,
+                  torch.maximum(st.cpu_avail, t) + hp.cpu_cost)
+        st.stats[:, ST_EVENTS] += ready.to(torch.int64)
+        return True
 
     # Chain a due-now NIC-TX into the same pass, as the reference does:
     # executing the queue head early is what the next pass would do.

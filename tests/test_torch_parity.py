@@ -234,13 +234,19 @@ def test_phase_clock_sees_every_window():
 
 def test_unported_features_raise():
     """Engine features of later slices raise NotImplementedError naming
-    their ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="A8"):
-        Simulation(phold_scenario(n=4, stop=2), device="cpu",
-                   engine_cfg=EngineConfig(num_hosts=4, cpu_model=True))
-    with pytest.raises(NotImplementedError, match="A7"):
-        Simulation(phold_scenario(n=4, stop=2), device="cpu",
-                   engine_cfg=EngineConfig(num_hosts=4, netscope=True))
+    their ROADMAP item; the CPU model and fault schedules build."""
+    Simulation(phold_scenario(n=4, stop=2), device="cpu",
+               engine_cfg=EngineConfig(num_hosts=4, cpu_model=True))
+    from shadow_tpu_torch.core.config import FaultSpec
+    scen = phold_scenario(n=4, stop=2)
+    scen.faults = [FaultSpec(kind="host_down", at=10**9, host="node1")]
+    assert Simulation(scen, device="cpu").injector is not None
+    for knobs, item in ((dict(netscope=True), "A7"),
+                        (dict(tracecap=8), "A7"),
+                        (dict(hostedcap=4), "A9")):
+        with pytest.raises(NotImplementedError, match=item):
+            Simulation(phold_scenario(n=4, stop=2), device="cpu",
+                       engine_cfg=EngineConfig(num_hosts=4, **knobs))
 
 
 def test_cuda_default_needs_a_card():
