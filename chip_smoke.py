@@ -15,6 +15,16 @@ The timed phases run first, each alone on the card and the host:
 4. gossip   — examples/gossip-100k.xml, 100,000 hosts, 30 sim-s, with the
               caps from its own comment: >= 99.9% of hosts saw every
               mined block.
+18. gossip-100k-telemetry — right after 4: the same XML and caps through
+              ``python -m shadow_tpu_torch`` with ``--netscope --metrics
+              --trace --perf LEDGER --heartbeat-frequency 10`` (files in a
+              temporary directory): phase 4's stats, an RTT histogram
+              holding every ST_RTT_COUNT sample, one [node] line per host
+              in each heartbeat emission (the tracker folds the
+              boundaries one chunk crosses into one emission), sim and
+              net sections in metrics.json, >= 90% of the wall attributed
+              or the residual named, a ``cuda`` ledger entry; the wall
+              printed beside phase 4's.
 5. socks10k — 10,000 hosts (1,000 bulkservers, 1,000 socksproxies,
               8,000 socksclients fetching 48 KiB through one relay) on
               the ER-300 stand-in topology, runahead 10 ms, through
@@ -60,6 +70,11 @@ each in a process of its own on the same card:
               card's).
 16. cpu-model-gpu=cpu — tests/test_cpu_model.py's blocked-threshold
               shape on cuda and on cpu: equal stats and digest chains.
+19. telemetry-gpu=cpu — phase 11's lossy bulk and 2-hop lossy SOCKS with
+              netscope on and logpcap on two hosts, on cuda and on cpu
+              (the CPU halves in a child process): equal stats, Hosts
+              fields, netscope JSONL bytes, pcap bytes and heartbeat
+              lines (apart from dev=, waste= and the getrusage columns).
 17. socks10k-faults — socks10k's 10,000 hosts to 3 sim-s under a fault
               schedule (relay1-50 down over [2.3 s, 2.7 s), 5% loss
               between relay51 and server1 over [2.2 s, 2.8 s), +5 ms
@@ -407,9 +422,11 @@ class PassSpan:
 
 
 # tgen-1k stop time (sim-s; clients start at 2 s; bench.py runs 10):
-# the phase is kept under ~300 s. 2.5 sim-s (11,708 passes) took 256.2 s
-# on the card, 4 sim-s (28,341 passes) 547.0 s
-TGEN_STOP_S = 2.5
+# 2.25 sim-s (6,205 passes) took 143.4-170.2 s on the card, 2.5 sim-s
+# (11,708 passes) 249.2-394.9 s, 4 sim-s (28,341 passes) 547.0 s; 2.5
+# took the whole script to 1,208 s on a slow host once the telemetry
+# phases were added
+TGEN_STOP_S = 2.25
 
 
 def two_poi_topology(loss=0.0):
@@ -544,8 +561,9 @@ def main():
         ping_phase(cli)
     if want("phold-4096"):
         phold_phase()
-    if want("gossip-100k"):
-        gossip_phase()
+    plain_gossip = gossip_phase() if want("gossip-100k") else None
+    if want("gossip-100k-telemetry"):
+        gossip_telemetry_phase(plain_gossip)
     if want("socks10k"):
         socks10k_phase(defs)
     if want("tgen-1k"):
@@ -578,6 +596,8 @@ def main():
             ckpt_gpu_cpu_phase()
         if want("cpu-model-gpu=cpu"):
             cpu_model_gpu_cpu_phase()
+        if want("telemetry-gpu=cpu"):
+            telemetry_gpu_cpu_phase(canonicalize_state)
         if tgen_cli:
             tgen_cli.finish()
         if faults:
@@ -655,6 +675,7 @@ def gossip_phase():
     phase("gossip-100k", time.perf_counter() - t0, **rates(rep),
           blocks=mined, full_share=round(share, 6),
           mean_prop_delay_us=round(s["mean_rtt_us"], 1))
+    return rep
 
 
 def arrays(sim, rep):
@@ -1105,6 +1126,204 @@ def cpu_model_gpu_cpu_phase():
     phase("cpu-model-gpu=cpu", time.perf_counter() - t0,
           events=s["events"], mean_rtt_us=s["mean_rtt_us"],
           chain_records=gch.count(b"\n"), chains_equal=True)
+
+
+# examples/gossip-100k.xml's own cap overrides (its comment)
+GOSSIP_CAPS = "qcap=16,scap=2,obcap=16,incap=32,chunk=256"
+# heartbeat columns that measure the process rather than the simulation
+_MEASURED = None
+
+
+def _norm_heartbeats(lines):
+    """Heartbeat lines minus dev=, dev-peak-gib=, waste= and the
+    getrusage columns (they depend on where the run executes)."""
+    import re
+    global _MEASURED
+    if _MEASURED is None:
+        _MEASURED = re.compile(r",dev=\d+|dev-peak-gib=[^,]*,|waste=[^,]*,|"
+                               r"maxrss-gib=.*$")
+    return [_MEASURED.sub("", line) for line in lines]
+
+
+def gossip_telemetry_phase(plain):
+    """18. gossip-100k through ``python -m shadow_tpu_torch`` with every
+    telemetry flag on: the same stats as phase 4 (`plain`, its report,
+    when it ran), an RTT histogram as large as ST_RTT_COUNT, one [node]
+    line per host in each heartbeat emission, metrics.json with sim and
+    net, >= 90% of the wall attributed (or the residual named) and a
+    cuda ledger entry."""
+    import collections
+    import re
+    import tempfile
+
+    from shadow_tpu_torch.__main__ import main as cli
+    from shadow_tpu_torch.engine import defs
+    from shadow_tpu_torch.engine import sim as S
+    from shadow_tpu_torch.obs import ledger as LG
+    t0 = time.perf_counter()
+    reports = []
+    run = S.Simulation.run
+
+    def keep(self, *a, **kw):
+        reports.append(run(self, *a, **kw))
+        return reports[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def p(name):
+            return os.path.join(tmp, name)
+
+        S.Simulation.run = keep
+        try:
+            with open(p("run.log"), "w") as log, \
+                    contextlib.redirect_stdout(log):
+                rc = cli([os.path.join(HERE, "examples", "gossip-100k.xml"),
+                          "--engine-caps", GOSSIP_CAPS, "--summary-json",
+                          "--netscope", p("ns.jsonl"),
+                          "--metrics", p("metrics.json"),
+                          "--trace", p("trace.json"),
+                          "--perf", p("ledger.jsonl"),
+                          "--heartbeat-frequency", "10"])
+        finally:
+            S.Simulation.run = run
+        rep = reports[-1]
+        text = open(p("run.log")).read().splitlines()
+        snap = json.load(open(p("metrics.json")))
+        ledger = LG.read(p("ledger.jsonl"))
+        ns_records = sum(1 for _ in open(p("ns.jsonl"))) - 1
+    s = json.loads(text[-1])
+    if rc != 0 or s["device"] != "cuda":
+        fail(f"gossip-100k-telemetry: rc={rc} {s}")
+    if plain is not None and not (rep.stats == plain.stats).all():
+        fail("gossip-100k-telemetry: stats differ from gossip-100k's")
+    rtt = rep.network["kinds"]["rtt"]["count"]
+    if rtt != rep.total(defs.ST_RTT_COUNT):
+        fail(f"gossip-100k-telemetry: {rtt} RTT samples against "
+             f"{rep.total(defs.ST_RTT_COUNT)} ST_RTT_COUNT")
+    nodes = collections.Counter(
+        x.split("[node] ")[1].split(",")[0] for x in text if "] [node] " in x)
+    emissions = sum("] [summary] " in x for x in text)
+    H = len(rep.host_names)
+    if not emissions or len(nodes) != emissions or set(
+            nodes.values()) != {H}:
+        fail(f"gossip-100k-telemetry: {emissions} heartbeat emissions "
+             f"with [node] lines per emission {dict(nodes)}")
+    if "sim" not in snap or "net" not in snap:
+        fail(f"gossip-100k-telemetry: metrics.json sections {sorted(snap)}")
+    m = re.search(r"\(([\d.]+)% of [\d.]+s wall attributed\)",
+                  "\n".join(text))
+    attributed = float(m.group(1)) if m else 0.0
+    residual = next((x for x in text if x.startswith("residual")), None)
+    if attributed < 90.0 and residual is None:
+        fail(f"gossip-100k-telemetry: {attributed}% attributed and no "
+             "residual named")
+    if len(ledger) != 1 or ledger[0]["platform"] != "cuda":
+        fail(f"gossip-100k-telemetry: ledger {ledger}")
+    perf = snap.get("perf", {})
+    phase("gossip-100k-telemetry", time.perf_counter() - t0, **rates(rep),
+          plain_wall_s=(round(plain.wall_seconds, 3)
+                        if plain is not None else None),
+          stats_equal=plain is not None, rtt_samples=rtt,
+          rtt_p50_us=s["rtt_p50_us"], rtt_p99_us=s["rtt_p99_us"],
+          emissions=emissions, node_lines_per_emission=H,
+          log_lines=len(text), netscope_records=ns_records,
+          attributed_pct=attributed,
+          tracker_s=perf.get("phase.tracker_s"),
+          netscope_s=perf.get("phase.netscope_s"),
+          window_s=perf.get("phase.window_s"),
+          mem_peak_bytes=s.get("mem_peak_bytes"),
+          ledger_platform=ledger[0]["platform"])
+    if residual:
+        print(f"  {residual}", flush=True)
+
+
+def _telemetry_shapes():
+    """name -> (scenario maker, engine caps): phase 11's lossy bulk and
+    2-hop lossy SOCKS with netscope on and logpcap on two hosts."""
+    def bulk():
+        s = bulk_scenario(0.05, 120_000, 2)
+        for h in s.hosts:
+            h.pcap = True
+        return s
+
+    def socks():
+        s = socks_scenario(0.02, 2, 90)
+        s.hosts[0].pcap = True          # the two target servers
+        return s
+
+    return {
+        "bulk-lossy": (bulk, dict(qcap=16, scap=4, obcap=8, incap=16,
+                                  txqcap=8, chunk_windows=8,
+                                  netscope=True)),
+        "socks-multihop-lossy": (socks, dict(
+            qcap=32, scap=12, obcap=16, incap=24, txqcap=12,
+            chunk_windows=8, netscope=True)),
+    }
+
+
+def _telemetry_run(name, device):
+    """One telemetry shape with netscope, pcap and heartbeats -> (stats,
+    Hosts arrays, summary, netscope bytes, {pcap file: bytes},
+    normalized heartbeat lines)."""
+    import tempfile
+
+    from shadow_tpu_torch.engine.sim import Simulation
+    from shadow_tpu_torch.engine.state import EngineConfig
+    from shadow_tpu_torch.obs.logger import SimLogger
+    mk, caps = _telemetry_shapes()[name]
+    scen = mk()
+    sim = Simulation(scen, engine_cfg=EngineConfig(
+        num_hosts=scen.total_hosts(), **caps), device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        ns = os.path.join(tmp, "ns.jsonl")
+        pdir = os.path.join(tmp, "pcap")
+        rep = sim.run(netscope=ns, pcap_dir=pdir, heartbeat_s=1.0,
+                      logger=SimLogger(stream=io.StringIO()))
+        ns_bytes = open(ns, "rb").read()
+        pcaps = {f: open(os.path.join(pdir, f), "rb").read()
+                 for f in sorted(os.listdir(pdir))}
+    return (*arrays(sim, rep), rep.summary(), ns_bytes, pcaps,
+            _norm_heartbeats(rep.heartbeats))
+
+
+def _telemetry_cpu_run(name):
+    """A child process's CPU half of one telemetry shape."""
+    torch.set_num_threads(4)
+    return _telemetry_run(name, "cpu")
+
+
+def telemetry_gpu_cpu_phase(canonicalize_state):
+    """19. telemetry on the card and on the CPU, bit for bit: stats,
+    Hosts fields, netscope JSONL bytes, pcap bytes and heartbeat lines
+    (apart from the columns that measure the process). The CPU halves
+    run in a child process while the card runs."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    t0 = time.perf_counter()
+    names = tuple(_telemetry_shapes())
+    with cf.ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as ex:
+        cpu = {n: ex.submit(_telemetry_cpu_run, n) for n in names}
+        for name in names:
+            gst, ga, s, gns, gpc, ghb = _telemetry_run(name, "cuda")
+            cst, ca, cs, cns, cpc, chb = cpu[name].result()
+            _same_on_both(name, (gst, ga), (cst, ca), canonicalize_state)
+            if gns != cns:
+                fail(f"{name}: netscope streams differ")
+            if gpc != cpc or len(gpc) != 2:
+                fail(f"{name}: pcap files differ: {sorted(gpc)} "
+                     f"{sorted(cpc)}")
+            if ghb != chb or not ghb:
+                fail(f"{name}: heartbeat lines differ")
+            if not (s["retransmits"] and s["transfers_done"]
+                    and s["completion_p99_s"] and ga["tr_drop"].sum() == 0):
+                fail(f"{name}: {s}")
+            print(f"  {name}: events={s['events']} "
+                  f"netscope_bytes={len(gns)} pcap_bytes="
+                  f"{[len(b) for b in gpc.values()]} heartbeat_lines="
+                  f"{len(ghb)} rtt_p50_us={s['rtt_p50_us']} "
+                  f"completion_p99_s={s['completion_p99_s']} "
+                  f"cuda_wall={s['wall_seconds']:.3f}s cpu_wall="
+                  f"{cs['wall_seconds']:.3f}s", flush=True)
+    phase("telemetry-gpu=cpu", time.perf_counter() - t0)
 
 
 # socks10k-faults stop time (sim-s; the bench runs 10): traffic starts at

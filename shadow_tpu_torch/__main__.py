@@ -1,9 +1,16 @@
 """Command line: run a Shadow XML scenario on the PyTorch port.
 
-    python -m shadow_tpu_torch CONFIG [--stop-time T] [--seed N]
-        [--engine-caps K=V,...] [--runahead TIME] [--summary-json]
-        [--device cuda|cpu] [--fault K=V,...]...
-        [--cpu-threshold US] [--cpu-precision US]
+    python -m shadow_tpu_torch (CONFIG | --test [--test-clients N])
+        [--stop-time T] [--seed N] [--engine-caps K=V,...]
+        [--runahead TIME] [--summary-json] [--device cuda|cpu]
+        [--fault K=V,...]... [--cpu-threshold US] [--cpu-precision US]
+        [--tcp-congestion-control aimd|reno|cubic] [--tcp-windows PKTS]
+        [--tcp-ssthresh PKTS] [--socket-recv-buffer BYTES]
+        [--socket-send-buffer BYTES] [--interface-buffer BYTES]
+        [--interface-qdisc fifo|rr]
+        [--heartbeat-frequency SEC] [--log-level LEVEL] [--verbose]
+        [--pcap-dir DIR] [--trace FILE] [--metrics FILE]
+        [--netscope FILE] [--perf [LEDGER]]
         [--digest FILE [--digest-every WINDOWS]]
         [--checkpoint PATH --checkpoint-every SEC [--checkpoint-keep N]]
         [--resume PATH|latest]
@@ -11,8 +18,16 @@
 
 Runs on the card unless ``--device cpu`` is given. Prints the applied
 faults, the summary, the capacity report and, with ``--summary-json``,
-the summary as one JSON line last. The robustness flags have the
-reference CLI's meanings (``python -m shadow_tpu``): ``--until-complete``
+the summary as one JSON line last. The flags have the reference CLI's
+meanings (``python -m shadow_tpu``). Telemetry: ``--heartbeat-frequency``
+logs tracker heartbeats, ``--pcap-dir`` writes pcap files for hosts
+with ``logpcap``, ``--trace`` a Chrome trace-event timeline
+(``tools/trace_report.py``), ``--metrics`` a metrics.json snapshot with
+per-chunk lines beside it, ``--netscope`` the network observatory's
+time-series (the summary gains exact RTT and completion tails), and
+``--perf`` prints the per-phase wall attribution and appends one entry
+to the perf ledger (``perf/ledger.jsonl`` unless a path is given;
+``SHADOW_TPU_LEDGER=off`` disables appends). ``--until-complete``
 re-runs ``python -m shadow_tpu_torch`` in a child process with
 ``--resume latest`` after each crash, and SIGTERM under
 ``--checkpoint`` saves a snapshot at the next chunk boundary and exits
@@ -24,6 +39,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import signal
 import sys
 import threading
@@ -31,11 +47,76 @@ import threading
 _CAPS = {"qcap", "scap", "obcap", "incap", "txqcap", "chunk_windows",
          "hostedcap", "tracecap"}
 
+TEST_TOPOLOGY = """<graphml xmlns="http://graphml.graphdrawing.org/xmlns">
+  <key attr.name="packetloss" attr.type="double" for="edge" id="d9" />
+  <key attr.name="latency" attr.type="double" for="edge" id="d7" />
+  <key attr.name="bandwidthup" attr.type="int" for="node" id="d4" />
+  <key attr.name="bandwidthdown" attr.type="int" for="node" id="d3" />
+  <key attr.name="packetloss" attr.type="double" for="node" id="d0" />
+  <graph edgedefault="undirected">
+    <node id="poi-1"><data key="d0">0.0</data>
+      <data key="d3">17038</data><data key="d4">2251</data></node>
+    <edge source="poi-1" target="poi-1">
+      <data key="d7">50.0</data><data key="d9">0.0</data></edge>
+  </graph>
+</graphml>"""
+
+# The builtin benchmark scenario, the reference CLI's --test: clients
+# making small downloads from one server over a single-PoI topology
+TEST_SERVER_GRAPH = """<graphml xmlns="http://graphml.graphdrawing.org/xmlns">
+  <key attr.name="serverport" attr.type="string" for="node" id="d0" />
+  <graph edgedefault="directed">
+    <node id="start"><data key="d0">80</data></node>
+  </graph>
+</graphml>"""
+
+TEST_CLIENT_GRAPH = """<graphml xmlns="http://graphml.graphdrawing.org/xmlns">
+  <key attr.name="count" attr.type="string" for="node" id="d6" />
+  <key attr.name="size" attr.type="string" for="node" id="d5" />
+  <key attr.name="type" attr.type="string" for="node" id="d4" />
+  <key attr.name="time" attr.type="string" for="node" id="d2" />
+  <key attr.name="peers" attr.type="string" for="node" id="d0" />
+  <graph edgedefault="directed">
+    <node id="start"><data key="d0">server:80</data></node>
+    <node id="transfer">
+      <data key="d4">get</data><data key="d5">18 KiB</data>
+    </node>
+    <node id="pause"><data key="d2">1</data></node>
+    <node id="end"><data key="d6">10</data></node>
+    <edge source="start" target="transfer" />
+    <edge source="transfer" target="end" />
+    <edge source="end" target="pause" />
+    <edge source="pause" target="start" />
+  </graph>
+</graphml>"""
+
+
+def build_test_scenario(n_clients: int = 1000, stop_s: int = 60):
+    """The reference's --test scenario: one tgen server and `n_clients`
+    tgen clients, each making 10 GETs of 18 KiB with 1 s pauses."""
+    from .core.config import HostSpec, ProcessSpec, Scenario
+    return Scenario(
+        stop_time=stop_s * 10**9,
+        topology_graphml=TEST_TOPOLOGY,
+        hosts=[
+            HostSpec(id="server", processes=[
+                ProcessSpec(plugin="tgen", start_time=10**9,
+                            arguments=TEST_SERVER_GRAPH)]),
+            HostSpec(id="client", quantity=n_clients, processes=[
+                ProcessSpec(plugin="tgen", start_time=2 * 10**9,
+                            arguments=TEST_CLIENT_GRAPH)]),
+        ],
+    )
+
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m shadow_tpu_torch",
                                 description=__doc__.splitlines()[0])
-    p.add_argument("config", help="shadow.config.xml path")
+    p.add_argument("config", nargs="?", help="shadow.config.xml path")
+    p.add_argument("--test", action="store_true",
+                   help="run the builtin benchmark scenario (the "
+                        "reference's --test)")
+    p.add_argument("--test-clients", type=int, default=1000)
     p.add_argument("--stop-time", default=None,
                    help="override the scenario stop time (e.g. 30s)")
     p.add_argument("--seed", type=int, default=None)
@@ -51,6 +132,60 @@ def main(argv=None) -> int:
                    help="torch device to run on (default: cuda)")
     p.add_argument("--summary-json", action="store_true",
                    help="print the final summary as one JSON line")
+    p.add_argument("--verbose", action="store_true",
+                   help="print the sim time after every chunk")
+    p.add_argument("--tcp-congestion-control", default="cubic",
+                   choices=["aimd", "reno", "cubic"])
+    p.add_argument("--tcp-windows", type=float, default=10.0,
+                   metavar="PKTS",
+                   help="initial TCP congestion window in packets "
+                        "(default 10)")
+    p.add_argument("--tcp-ssthresh", type=float, default=0,
+                   metavar="PKTS",
+                   help="initial TCP slow-start threshold in packets "
+                        "(0 = discover)")
+    p.add_argument("--socket-recv-buffer", type=int, default=0,
+                   metavar="BYTES",
+                   help="socket receive buffer for hosts that set none "
+                        "(0 = autotune)")
+    p.add_argument("--socket-send-buffer", type=int, default=0,
+                   metavar="BYTES",
+                   help="socket send buffer for hosts that set none "
+                        "(0 = autotune)")
+    p.add_argument("--interface-buffer", type=int, default=0,
+                   metavar="BYTES",
+                   help="NIC input buffer size for hosts that set none")
+    p.add_argument("--interface-qdisc", default="rr",
+                   choices=["fifo", "rr"],
+                   help="NIC socket service discipline")
+    p.add_argument("--heartbeat-frequency", type=float, default=0,
+                   metavar="SEC", help="tracker heartbeat interval")
+    p.add_argument("--log-level", default="message",
+                   choices=["error", "warning", "message", "info", "debug"])
+    p.add_argument("--pcap-dir", default=None, metavar="DIR",
+                   help="write pcap files for hosts with logpcap set")
+    p.add_argument("--trace", default=None, metavar="FILE",
+                   help="record a Chrome trace-event timeline "
+                        "(Perfetto / tools/trace_report.py)")
+    p.add_argument("--metrics", default=None, metavar="FILE",
+                   help="write a metrics snapshot to FILE and per-chunk "
+                        "JSON lines to FILE.chunks.jsonl")
+    p.add_argument("--netscope", default=None, metavar="FILE",
+                   help="network observatory: count RTT/completion/"
+                        "queue/retransmit latency histograms on the "
+                        "device and stream a per-chunk network "
+                        "time-series to FILE as JSON lines; the summary "
+                        "gains exact p50/p99 read-outs and --metrics a "
+                        "`net` section. Changes the state's shape (and "
+                        "so the config fingerprint), never the results")
+    p.add_argument("--perf", nargs="?", const="", default=None,
+                   metavar="LEDGER",
+                   help="per-phase wall attribution and the perf ledger: "
+                        "collect spans in memory (no --trace file "
+                        "needed), print the phase report after the run "
+                        "and append one entry to the ledger (default "
+                        "perf/ledger.jsonl; SHADOW_TPU_LEDGER=off "
+                        "disables appends)")
     p.add_argument("--fault", action="append", default=None,
                    metavar="K=V,...",
                    help="schedule one fault (repeatable), e.g. "
@@ -108,15 +243,32 @@ def main(argv=None) -> int:
             p.error("--until-complete requires --checkpoint PATH and "
                     "--checkpoint-every SEC (resume needs snapshots)")
         from .engine.supervisor import Supervisor, strip_supervisor_args
-        return Supervisor(
-            strip_supervisor_args(argv if argv is not None
-                                  else sys.argv[1:]),
-            args.checkpoint, max_retries=args.max_retries,
-            backoff_s=args.retry_backoff).run()
+        from .obs import metrics as MT
+        from .obs import trace as TR
+        # the supervisor's own spans and counters go to sidecar files;
+        # the child's --trace/--metrics files stay the child's
+        own_tr = bool(args.trace) and not TR.ENABLED
+        own_mt = bool(args.metrics) and not MT.ENABLED
+        if own_tr:
+            TR.install(args.trace + ".supervisor")
+        if own_mt:
+            MT.install(args.metrics + ".supervisor")
+        try:
+            return Supervisor(
+                strip_supervisor_args(argv if argv is not None
+                                      else sys.argv[1:]),
+                args.checkpoint, max_retries=args.max_retries,
+                backoff_s=args.retry_backoff).run()
+        finally:
+            if own_tr:
+                TR.finish()
+            if own_mt:
+                MT.finish()
 
     from .core.config import FaultSpec, load_xml
     from .core.simtime import parse_time
     from .engine.sim import Preempted, Simulation, auto_engine_config
+    from .obs.logger import SimLogger
     from .routing.topology import build_topology
 
     if args.resume == "latest":
@@ -130,7 +282,12 @@ def main(argv=None) -> int:
                 "shadow_tpu_torch: no usable snapshot under "
                 f"{args.checkpoint!r} yet — starting fresh\n")
 
-    scenario = load_xml(args.config)
+    if args.test:
+        scenario = build_test_scenario(args.test_clients)
+    elif args.config:
+        scenario = load_xml(args.config)
+    else:
+        p.error("provide a config.xml or --test")
     if args.stop_time:
         scenario.stop_time = parse_time(args.stop_time, default_unit="s")
     if args.seed is not None:
@@ -164,9 +321,23 @@ def main(argv=None) -> int:
     if args.cpu_precision is not None:
         scenario.cpu_precision_ns = (args.cpu_precision * 1000
                                      if args.cpu_precision >= 0 else 0)
+    # the buffer flags are defaults: a host's own XML value wins
+    for h in scenario.hosts:
+        if args.socket_recv_buffer and h.socket_recv_buffer is None:
+            h.socket_recv_buffer = args.socket_recv_buffer
+        if args.socket_send_buffer and h.socket_send_buffer is None:
+            h.socket_send_buffer = args.socket_send_buffer
+        if args.interface_buffer and h.interface_buffer is None:
+            h.interface_buffer = args.interface_buffer
 
+    logger = SimLogger(level=args.log_level)
+    logger.message(0, "main", f"shadow_tpu_torch starting: "
+                   f"{scenario.total_hosts()} hosts, "
+                   f"stop={scenario.stop_time / 1e9:.1f}s")
     topo = build_topology(scenario.topology_graphml or scenario.topology_path)
     cfg = auto_engine_config(scenario, topo)
+    if args.netscope:
+        cfg = dataclasses.replace(cfg, netscope=True)
     for kv in (args.engine_caps.split(",") if args.engine_caps else ()):
         k, _, v = kv.partition("=")
         k = {"chunk": "chunk_windows"}.get(k.strip(), k.strip())
@@ -188,6 +359,24 @@ def main(argv=None) -> int:
                 f"minimum path latency {true_min}ns: cross-host arrivals "
                 "may execute late (the reference gives the same warning)\n")
         sim.sh.min_jump = sim.sh.min_jump.new_tensor(max(ra, 1))
+    cc = {"aimd": 0, "reno": 1, "cubic": 2}[args.tcp_congestion_control]
+    if cc != sim.cfg.cc_kind:
+        sim.sh.cc_kind.fill_(cc)
+    if args.tcp_windows != 10.0:
+        sim.sh.tcp_init_wnd.fill_(args.tcp_windows)
+    if args.tcp_ssthresh:
+        sim.sh.tcp_ssthresh0.fill_(args.tcp_ssthresh)
+    qd = {"fifo": 0, "rr": 1}[args.interface_qdisc]
+    if qd != sim.cfg.qdisc:
+        sim.cfg = dataclasses.replace(sim.cfg, qdisc=qd)
+    # --perf collects the spans itself (in memory without --trace) and
+    # reads them after the run
+    own_perf_tr = False
+    if args.perf is not None:
+        from .obs import trace as TR
+        if not TR.ENABLED:
+            TR.install(args.trace)
+            own_perf_tr = True
     if args.checkpoint and (threading.current_thread()
                             is threading.main_thread()):
         # SIGTERM: snapshot at the next chunk boundary, exit 75
@@ -201,13 +390,27 @@ def main(argv=None) -> int:
                          checkpoint_keep=args.checkpoint_keep,
                          resume_from=args.resume, digest=args.digest,
                          digest_every=args.digest_every,
-                         digest_context=ctx)
+                         digest_context=ctx,
+                         heartbeat_s=args.heartbeat_frequency,
+                         logger=logger, pcap_dir=args.pcap_dir,
+                         trace=None if own_perf_tr else args.trace,
+                         metrics=args.metrics, netscope=args.netscope,
+                         verbose=args.verbose)
     except Preempted as pe:
         from .engine.supervisor import EXIT_PREEMPTED
         sys.stderr.write(f"shadow_tpu_torch: preempted: {pe} — resume "
                          "with --resume latest\n")
         return EXIT_PREEMPTED
+    finally:
+        if own_perf_tr:
+            tr = TR.finish()
     s = report.summary()
+    if own_perf_tr:
+        _perf_report(args, sim, scenario, report, tr, logger)
+    for kind, kk in report.network.get("kinds", {}).items():
+        if kk["count"]:
+            print(f"netscope {kind}: n={kk['count']} "
+                  f"p50={kk['p50_us']}us p99={kk['p99_us']}us")
     for rec in report.faults:
         print(f"fault applied: {rec}")
     print(f"done: {s['events']} events in {s['wall_seconds']:.2f}s wall "
@@ -219,6 +422,33 @@ def main(argv=None) -> int:
     if args.summary_json:
         print(json.dumps(s))
     return 0
+
+
+def _perf_report(args, sim, scenario, report, tr, logger):
+    """--perf: print where the wall went and extend the scenario's
+    trajectory in the perf ledger (not for a resumed run, whose events
+    span the whole run while its wall covers the tail)."""
+    from .obs import ledger as LG
+    from .obs import perf as PF
+    att = PF.attribute(tr.events, report.wall_seconds, report.events)
+    print(PF.format_report(att))
+    if args.resume:
+        logger.message(report.sim_time_ns, "main",
+                       "perf ledger: skipping append for a resumed run "
+                       "(tail-only wall would inflate the rate)")
+        return
+    label = ("test" if args.test else
+             os.path.splitext(os.path.basename(args.config))[0])
+    entry = LG.entry_from_report(
+        label,
+        LG.fingerprint_of(sim.cfg, seed=scenario.seed,
+                          stop_ns=int(scenario.stop_time),
+                          runahead=args.runahead or "", workers=0),
+        sim.device.type, report, att, cfg=sim.cfg)
+    path = LG.append(entry, args.perf or None)
+    if path:
+        logger.message(report.sim_time_ns, "main",
+                       f"perf ledger += {path}")
 
 
 if __name__ == "__main__":

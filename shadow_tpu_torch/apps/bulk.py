@@ -20,6 +20,7 @@ from ..core.rowops import col_add, rget
 from ..engine.defs import ST_APP_DONE, ST_XFER_DONE
 from ..net import packet as P
 from ..net.tcp import tcp_close_call, tcp_connect, tcp_listen, tcp_write
+from ..obs import netscope
 from .base import branch_of, cfg_words, regs, set_reg, timer
 
 
@@ -40,6 +41,11 @@ def app_bulk(st, hp, sh, m, now, wake, branches):
         tcp_write(st, m & (b == 3), now, sock, c[:, 2])
     if 6 in branches:                       # WAKE_SENT: transfer done
         ms = m & (b == 6)
+        if netscope.on(st):
+            # completion time runs from the handshake stamp, read
+            # before the close path touches the slot
+            dur_us = (now - rget(st.sk_hs_time, sock)).clamp(min=0) // 1000
+            netscope.observe(st, ms, netscope.NS_COMPLETION, dur_us)
         tcp_close_call(st, ms, now, sock)
         set_reg(st, ms, 1, regs(st)[:, 1] + 1)
         col_add(st.stats, ST_XFER_DONE, ms)

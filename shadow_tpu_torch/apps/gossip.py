@@ -24,6 +24,7 @@ from ..core.rowops import col_add
 from ..engine.defs import ST_RTT_COUNT, ST_RTT_SUM_US, ST_XFER_DONE
 from ..net import packet as P
 from ..net.udp import udp_open, udp_sendto
+from ..obs import netscope
 from .base import branch_of, cfg_words, draw, regs, set_reg, timer
 
 MAX_FANOUT = 8
@@ -75,4 +76,5 @@ def app_gossip(st, hp, sh, m, now, wake, branches):
         col_add(st.stats, ST_XFER_DONE, mf)
         col_add(st.stats, ST_RTT_SUM_US, mf, delay_us)
         col_add(st.stats, ST_RTT_COUNT, mf)
+        netscope.observe(st, mf, netscope.NS_RTT, delay_us)
         _relay(st, hp, mf, now, h)

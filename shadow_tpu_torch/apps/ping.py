@@ -21,6 +21,7 @@ from ..engine.defs import (ST_APP_DONE, ST_RTT_COUNT, ST_RTT_SUM_US,
                            ST_XFER_DONE, WAKE_START, WAKE_SOCKET)
 from ..net import packet as P
 from ..net.udp import udp_open, udp_sendto
+from ..obs import netscope
 from .base import branch_of, cfg_words, regs, set_reg, timer
 
 _US_MOD = 2**31
@@ -57,6 +58,9 @@ def app_ping(st, hp, sh, m, now, wake, branches):
         col_add(st.stats, ST_RTT_SUM_US, me, rtt_us)
         col_add(st.stats, ST_RTT_COUNT, me)
         col_add(st.stats, ST_XFER_DONE, me)
+        # a ping's echo is both its RTT sample and its completion
+        netscope.observe(st, me, netscope.NS_RTT, rtt_us)
+        netscope.observe(st, me, netscope.NS_COMPLETION, rtt_us)
         limit = cfg_words(hp)[:, 4]
         col_add(st.stats, ST_APP_DONE, me & (limit > 0)
                 & (regs(st)[:, 2] >= limit))

@@ -28,6 +28,7 @@ from ..engine.defs import (ST_APP_DONE, ST_CHAIN_SHORT, ST_RTT_COUNT,
                            ST_RTT_SUM_US, ST_XFER_DONE)
 from ..net import packet as P
 from ..net.tcp import tcp_close_call, tcp_connect, tcp_listen, tcp_write
+from ..obs import netscope
 from .base import branch_of, cfg_words, draw, regs, set_reg, timer
 
 TAG_HOPS_SHIFT = 29
@@ -96,6 +97,9 @@ def app_socks_client(st, hp, sh, m, now, wake, branches):
         col_add(st.stats, ST_XFER_DONE, md)
         col_add(st.stats, ST_RTT_SUM_US, md, delay_us)
         col_add(st.stats, ST_RTT_COUNT, md)
+        # the fetch delay is both the RTT sample and the completion
+        netscope.observe(st, md, netscope.NS_RTT, delay_us)
+        netscope.observe(st, md, netscope.NS_COMPLETION, delay_us)
         fin = md & (c[:, 6] > 0) & (regs(st)[:, 1] >= c[:, 6])
         col_add(st.stats, ST_APP_DONE, fin)
         timer(st, me & ~fin, now + pause)

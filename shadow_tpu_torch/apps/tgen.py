@@ -36,6 +36,7 @@ from ..engine.defs import (ST_APP_DONE, ST_TGEN_ABORT, ST_TGEN_DROP,
                            ST_XFER_DONE, WAKE_TIMER)
 from ..net import packet as P
 from ..net.tcp import tcp_close_call, tcp_connect, tcp_listen, tcp_write
+from ..obs import netscope
 from .base import (branch_of, cfg_words, draw, regs, schedule_wake, set_reg,
                    timer)
 
@@ -518,11 +519,12 @@ def _wd_arm(st, m, now, slot, mark, timeout_ns, stallout_ns):
 
 
 def _observe_completion(st, m, now, slot):
-    """The network observatory's completion sample (netscope.observe in
-    the reference). A no-op while the histogram has zero width
-    (netscope off); netscope is ROADMAP A7."""
-    if st.ns_hist.shape[2]:
-        raise NotImplementedError("netscope is not ported (ROADMAP A7)")
+    """The network observatory's completion sample: the time since the
+    handshake stamp of client socket `slot`, read before the close path
+    touches the slot. Issues nothing with netscope off."""
+    if netscope.on(st):
+        dur_us = (now - rget(st.sk_hs_time, slot)).clamp(min=0) // 1000
+        netscope.observe(st, m, netscope.NS_COMPLETION, dur_us)
 
 
 def app_tgen(st, hp, sh, m, now, wake, branches):

@@ -6,8 +6,12 @@ reference's order (topology -> attach -> DNS -> ``compile_app`` ->
 ``make_shared``/``alloc_hosts`` -> the initial WAKE_START pushes, one
 per process slot), compiles the fault schedule, then drives the window
 loop ``chunk_windows`` windows at a time. Between chunks the loop
-applies faults at their exact times, writes crash-safe checkpoints,
-records the determinism digest chain and honours a preemption request.
+drains the packet-trace rings into pcap files, emits tracker
+heartbeats, samples the network observatory, writes crash-safe
+checkpoints, records the determinism digest chain, applies faults at
+their exact times and honours a preemption request; with a trace or
+metrics recorder installed each of these is a span and the chunk
+publishes its counters.
 """
 
 from __future__ import annotations
@@ -76,9 +80,15 @@ class SimReport:
     sim_time_ns: int
     wall_seconds: float
     windows: int
+    heartbeats: list = field(default_factory=list)  # tracker lines
     capacity: dict = field(default_factory=dict)
     device: str = ""           # where the run executed (torch device)
     passes: int = 0            # drain passes over all windows
+    memory: dict = field(default_factory=dict)  # the run's memory
+    #   watermark (obs.memscope.Watermark.snapshot)
+    network: dict = field(default_factory=dict)  # netscope runs: per
+    #   kind (rtt/completion/queue/retx) bucket counts with exact
+    #   p50/p90/p99 read-outs, the bounds, the record count and path
     faults: list = field(default_factory=list)  # applied fault events
     #   in execution order (FaultInjector.log)
     durability: dict = field(default_factory=dict)  # checkpoint saves
@@ -122,12 +132,25 @@ class SimReport:
                  "deferred": defers.get(name, 0)}
                 for name, cap, peak in self.capacity.get("rows", [])]
 
+    @property
+    def waste_frac(self) -> float:
+        """The lockstep drain's wasted-lane share: one minus the events
+        run over the rows the passes stepped (passes x H). A pass may
+        run two events on a row (an event and its chained NIC-TX), so
+        a busy run can read below zero. The port's own occupancy
+        figure; the reference's rung ladders count lanes differently,
+        so it is not a parity quantity."""
+        lanes = self.passes * len(self.host_names)
+        return 1.0 - self.events / lanes if lanes else 0.0
+
     def summary(self) -> dict:
-        """The run's headline figures (the reference's keys)."""
+        """The run's headline figures (the reference's keys). With the
+        metrics registry installed they are also published as ``sim.*``
+        gauges (the metrics.json ``sim`` section)."""
         mean_rtt_us = (self.total(defs.ST_RTT_SUM_US) /
                        max(self.total(defs.ST_RTT_COUNT), 1))
         sim_s = self.sim_time_ns / SIMTIME_ONE_SECOND
-        return {
+        s = {
             "hosts": len(self.host_names),
             "events": self.events,
             "windows": self.windows,
@@ -152,7 +175,24 @@ class SimReport:
             "mean_rtt_us": mean_rtt_us,
             "device": self.device,
             "passes": self.passes,
-        } | ({"faults_applied": len(self.faults)} if self.faults else {})
+            "waste_frac": self.waste_frac,
+        }
+        if self.memory:
+            s["mem_peak_bytes"] = int(self.memory.get("peak_bytes", 0))
+            s["mem_source"] = self.memory.get("source")
+        # exact tails from the netscope histograms
+        if self.network:
+            kinds = self.network.get("kinds", {})
+            s["rtt_p50_us"] = kinds.get("rtt", {}).get("p50_us", 0)
+            s["rtt_p99_us"] = kinds.get("rtt", {}).get("p99_us", 0)
+            s["completion_p99_s"] = (
+                kinds.get("completion", {}).get("p99_us", 0) / 1e6)
+        if self.faults:
+            s["faults_applied"] = len(self.faults)
+        from ..obs import metrics as MT
+        if MT.ENABLED:
+            MT.REGISTRY.publish("sim", s)
+        return s
 
 
 def auto_engine_config(scenario: Scenario, topo: Topology) -> EngineConfig:
@@ -383,8 +423,10 @@ class Simulation:
             checkpoint_every_s: float = 0, checkpoint_keep: int = 0,
             resume_from: str = None, resume_unchecked: bool = False,
             digest: str = None, digest_every: int = 0,
-            digest_context: dict = None,
-            digest_rewind: bool = True) -> SimReport:
+            digest_context: dict = None, digest_rewind: bool = True,
+            heartbeat_s: float = 0, logger=None, pcap_dir: str = None,
+            trace: str = None, metrics: str = None,
+            netscope: str = None, verbose: bool = False) -> SimReport:
         """Run to the stop time. The state tensors are updated in place;
         the final state stays in ``self.hosts``. `clock` is passed to
         ``window.run_windows`` (per-phase wall split).
@@ -403,38 +445,81 @@ class Simulation:
         the snapshot's stamped position, so the finished chain equals
         an uninterrupted run's; `digest_rewind=False` records a fresh
         chain of the resumed tail instead. An already installed
-        recorder takes this run's records and the path is ignored."""
+        recorder takes this run's records and the path is ignored.
+
+        Telemetry, as in the reference: `heartbeat_s` > 0 emits tracker
+        heartbeats on that sim-time interval (``obs.tracker``, through
+        `logger` when given); `pcap_dir` writes a pcap file per host
+        with ``logpcap`` from the packet-trace ring (``obs.pcap``);
+        `netscope` streams the per-chunk network time-series to that
+        path (``obs.netscope``; needs ``EngineConfig.netscope``, and
+        ``SimReport.network`` holds the exact percentiles either way);
+        `trace` writes a Chrome trace-event timeline (``obs.trace``) and
+        `metrics` a metrics.json snapshot plus per-chunk lines at
+        ``<metrics>.chunks.jsonl`` (``obs.metrics``). None of them
+        changes a result. A trace or metrics recorder already installed
+        process-wide takes this run's records and the path is
+        ignored."""
         if self._ran:
             raise RuntimeError("Simulation objects are single-use")
         self._ran = True
         # a preemption flag left by an earlier run must not stop this one
         _PREEMPT.clear()
+        import sys
         from ..obs import digest as DG
-        own_dg = False
+        from ..obs import metrics as MT
+        from ..obs import trace as TR
+        own_dg = own_tr = own_mt = False
         if digest is not None:
             if not DG.ENABLED:
                 DG.install(digest, every=digest_every or DG.DEFAULT_EVERY,
                            context=digest_context)
                 own_dg = True
             else:
-                import sys
                 sys.stderr.write(
                     "shadow_tpu_torch: warning: a digest recorder is "
                     "already installed process-wide; the path passed to "
                     "run() is ignored\n")
+        if trace is not None and not TR.ENABLED:
+            TR.install(trace)
+            own_tr = True
+        if metrics is not None and not MT.ENABLED:
+            MT.install(metrics, jsonl_path=metrics + ".chunks.jsonl")
+            own_mt = True
+        if (trace is not None and not own_tr) or (
+                metrics is not None and not own_mt):
+            sys.stderr.write(
+                "shadow_tpu_torch: warning: a trace/metrics recorder is "
+                "already installed process-wide; the path passed to "
+                "run() is ignored\n")
         try:
             return self._run_impl(clock, checkpoint_path,
                                   checkpoint_every_s, checkpoint_keep,
                                   resume_from, resume_unchecked,
-                                  digest_rewind)
+                                  digest_rewind, heartbeat_s, logger,
+                                  pcap_dir, netscope, verbose)
         finally:
+            if own_tr:
+                TR.finish()
+            if own_mt:
+                MT.finish()
             if own_dg:
                 DG.finish()
 
     def _run_impl(self, clock, checkpoint_path, checkpoint_every_s,
                   checkpoint_keep, resume_from, resume_unchecked,
-                  digest_rewind) -> SimReport:
+                  digest_rewind, heartbeat_s, logger, pcap_dir,
+                  netscope, verbose) -> SimReport:
         from ..obs import digest as DG
+        from ..obs import memscope as MS
+        from ..obs import metrics as MT
+        from ..obs import netscope as NSC
+        from ..obs import trace as TR
+        if TR.ENABLED:
+            s0 = TR.TRACER.now()
+        # with --trace/--metrics off, the obs layer costs the chunk loop
+        # this one boolean
+        obs_on = TR.ENABLED or MT.ENABLED
         dg = DG.RECORDER if DG.ENABLED else None
         st, hp, sh, cfg = self.hosts, self.hp, self.sh, self.cfg
         H = cfg.num_hosts
@@ -445,6 +530,26 @@ class Simulation:
             raise ValueError(
                 "checkpoint_path requires checkpoint_every_s > 0 "
                 "(otherwise no snapshot would ever be written)")
+        if netscope and not cfg.netscope:
+            raise ValueError(
+                "run(netscope=...) requires EngineConfig.netscope=True "
+                "(the histograms are allocated at Simulation "
+                "construction)")
+        tracker = None
+        if heartbeat_s:
+            from ..obs.tracker import Tracker, socket_columns
+            tracker = Tracker(int(heartbeat_s * 10**9), self.host_names,
+                              logger)
+        # with the knob on, records accumulate in memory; the path adds
+        # the JSONL stream
+        nsrec = NSC.NetScope(netscope) if cfg.netscope else None
+        pcap = None
+        if cfg.tracecap and pcap_dir is not None:
+            from ..obs.pcap import PcapWriter
+            pcap = PcapWriter(pcap_dir, self.host_names,
+                              self.dns.ip_array(H),
+                              np.flatnonzero(hp.pcap_on.cpu().numpy()))
+        wm = MS.Watermark(self.device)
         fingerprint = ckpt.scenario_fingerprint(self.scenario, cfg,
                                                 self.seed)
         store = (ckpt.CheckpointStore(checkpoint_path,
@@ -455,7 +560,7 @@ class Simulation:
             dg.write_manifest(DG.build_manifest(
                 self.scenario, cfg, self.seed, sh, self.host_names, dg,
                 self.device, checkpoint_path=checkpoint_path,
-                faults=inj is not None))
+                pcap=pcap_dir is not None, faults=inj is not None))
         # records land on exact window boundaries
         chunk = min(cfg.chunk_windows, dg.every) if dg else cfg.chunk_windows
         # the real stop time: a segment's Shared may carry the next
@@ -488,7 +593,17 @@ class Simulation:
             durability["load_s"] = _time.perf_counter() - t0
 
         def dg_record(kind, window, sim_ns):
+            if TR.ENABLED:
+                d0 = TR.TRACER.now()
             dg.record(st, H, window, sim_ns, kind)
+            if TR.ENABLED:
+                TR.TRACER.complete("digest.record", d0,
+                                   args={"window": window, "kind": kind})
+            if MT.ENABLED:
+                reg = MT.REGISTRY
+                reg.counter("digest.records").inc()
+                reg.gauge("digest.last_window").set(window)
+                reg.gauge("digest.bytes_hashed").set(dg.bytes_hashed)
 
         if dg is not None:
             if resume_from and snap.digest_records >= 0 and digest_rewind:
@@ -517,13 +632,27 @@ class Simulation:
                 {"file": path, "bytes": os.path.getsize(path),
                  "wall_s": _time.perf_counter() - t0, "sim_ns": ws_now})
 
+        def events_now():
+            return int(st.stats[:, defs.ST_EVENTS].sum())
+
+        def waste_now(events):
+            lanes = passes * H
+            return 1.0 - events / lanes if lanes else 0.0
+
+        # a resumed run's restored stats already hold the earlier events
+        prev_events = events_now() if obs_on and resume_from else 0
+        chunk_i = 0
         self._sync()
+        if TR.ENABLED:
+            TR.TRACER.complete("run.setup", s0)
         wall0 = _time.perf_counter()
         while True:
             if _PREEMPT.is_set():
                 saved = store is not None
                 if saved:
                     save_snapshot(ws)
+                if MT.ENABLED:
+                    MT.REGISTRY.counter("engine.preemptions").inc()
                 raise Preempted(min(ws, stop_ns), saved)
             # bound this segment at the next fault: the engine runs every
             # event before it, then the fault applies at its exact time
@@ -532,22 +661,100 @@ class Simulation:
             if nf is not None and nf < stop_ns:
                 sh_seg = dataclasses.replace(
                     sh, stop_time=sh.stop_time.new_tensor(nf))
+            if obs_on:
+                ws0 = ws
+                c0 = _time.perf_counter_ns()
             ws, we, n, npass = run_windows(st, hp, sh_seg, ws, we, cfg,
                                            chunk, clock=clock)
             total_windows += n
             passes += npass
+            wm.sample()
+            now_ns = min(ws, stop_ns)
+            if pcap is not None:
+                if TR.ENABLED:
+                    p0 = TR.TRACER.now()
+                pcap.drain(st.tr_time.cpu().numpy(),
+                           st.tr_pkt.cpu().numpy(),
+                           st.tr_cnt.cpu().numpy())
+                st.tr_cnt.zero_()
+                if TR.ENABLED:
+                    TR.TRACER.complete("pcap.drain", p0)
+            if tracker is not None and tracker.due(now_ns):
+                if TR.ENABLED:
+                    t0 = TR.TRACER.now()
+                stats_np = st.stats.cpu().numpy()
+                tracker.maybe_heartbeat(
+                    now_ns, stats_np, socks=socket_columns(st),
+                    dev_peak=wm.peak_bytes,
+                    waste=waste_now(int(stats_np[:, defs.ST_EVENTS]
+                                        .sum())))
+                if TR.ENABLED:
+                    TR.TRACER.complete("tracker.heartbeat", t0)
+            if nsrec is not None:
+                if TR.ENABLED:
+                    n0 = TR.TRACER.now()
+                # the host sums over hosts anyway: summing on the device
+                # moves [K, B] instead of [H, K, B] (exact: integers)
+                nsrec.sample(total_windows, now_ns,
+                             st.ns_hist.sum(0).cpu().numpy(),
+                             st.stats.cpu().numpy(),
+                             conns=int(st.sk_used.sum()))
+                if TR.ENABLED:
+                    TR.TRACER.complete("netscope.sample", n0)
             if store is not None and ws >= ckpt_at:
+                if TR.ENABLED:
+                    k0 = TR.TRACER.now()
                 save_snapshot(ws)
                 ckpt_at += every_ns
+                if TR.ENABLED:
+                    TR.TRACER.complete("checkpoint.save", k0)
             if crash is not None:
                 crash.maybe_fire(ws)
+            if obs_on:
+                # one scalar read per chunk buys the events annotation
+                ev_total = events_now()
+                ev = ev_total - prev_events
+                prev_events = ev_total
+                if TR.ENABLED:
+                    TR.TRACER.complete(
+                        "chunk", c0,
+                        args={"sim_ns_start": ws0, "sim_ns_end": now_ns,
+                              "windows": n, "events": ev,
+                              "passes": npass})
+                if MT.ENABLED:
+                    reg = MT.REGISTRY
+                    reg.counter("engine.chunks").inc()
+                    reg.counter("engine.windows").inc(n)
+                    reg.counter("engine.passes").inc(npass)
+                    reg.counter("engine.events").inc(ev)
+                    reg.gauge("engine.sim_ns").set(now_ns)
+                    chunk_wall = (_time.perf_counter_ns() - c0) / 1e9
+                    chunk_sim = max(now_ns - ws0, 0) / 1e9
+                    reg.chunk(
+                        chunk=chunk_i, sim_ns_start=ws0,
+                        sim_ns_end=now_ns, windows=n, events=ev,
+                        passes=npass, wall_s=round(chunk_wall, 6),
+                        events_per_sec=(round(ev / chunk_wall, 1)
+                                        if chunk_wall else None),
+                        wall_per_sim_second=(
+                            round(chunk_wall / chunk_sim, 6)
+                            if chunk_sim else None),
+                        waste_frac=waste_now(ev_total))
+                chunk_i += 1
             if dg is not None and dg.due(total_windows):
-                dg_record("cadence", total_windows, min(ws, stop_ns))
+                dg_record("cadence", total_windows, now_ns)
+            if verbose:
+                print(f"  t={ws / SIMTIME_ONE_SECOND:.3f}s "
+                      f"windows={total_windows}")
             if nf is not None and nf < stop_ns and ws >= nf:
+                if TR.ENABLED:
+                    f0 = TR.TRACER.now()
                 sh = inj.apply_batch(st, sh)
                 # a kill's RSTs and a restart's starts may open a window
                 # before the old one
                 ws, we = window_after(next_wakeup(st))
+                if TR.ENABLED:
+                    TR.TRACER.complete("faults.apply", f0)
                 if dg is not None:
                     dg_record("fault", total_windows, nf)
             # a pending fault keeps the loop alive after the queues drain
@@ -561,6 +768,10 @@ class Simulation:
             durability.update(digest_records=len(dg.records),
                               digest_bytes=dg.bytes_hashed,
                               digest_wall_s=dg.record_wall)
+        if pcap is not None:
+            pcap.close()
+        if TR.ENABLED:
+            f0 = TR.TRACER.now()
         stats = st.stats.cpu().numpy()
         self._sync()
         wall = _time.perf_counter() - wall0
@@ -575,12 +786,39 @@ class Simulation:
         self.final_hosts = st
         if inj is not None:
             durability["rsts"] = inj.rsts
-        return SimReport(stats=stats, host_names=self.host_names,
-                         sim_time_ns=sim_ns, wall_seconds=wall,
-                         windows=total_windows, capacity=capacity,
-                         device=str(self.device), passes=passes,
-                         faults=list(inj.log) if inj is not None else [],
-                         durability=durability)
+        wm.sample()
+        memory = wm.snapshot()
+        # exact percentiles from the final histograms (not the last
+        # sample: a run of zero chunks still reports)
+        network = {}
+        if nsrec is not None:
+            network = NSC.report(st.ns_hist.sum(0).cpu().numpy())
+            network["records"] = len(nsrec.records)
+            if nsrec.path:
+                network["path"] = nsrec.path
+            nsrec.close()
+        report = SimReport(stats=stats, host_names=self.host_names,
+                           sim_time_ns=sim_ns, wall_seconds=wall,
+                           windows=total_windows,
+                           heartbeats=tracker.lines if tracker else [],
+                           capacity=capacity, device=str(self.device),
+                           passes=passes, memory=memory, network=network,
+                           faults=list(inj.log) if inj is not None else [],
+                           durability=durability)
+        if TR.ENABLED:
+            TR.TRACER.complete("report.finalize", f0)
+        if MT.ENABLED:
+            MS.publish(MT.REGISTRY, memory)
+            if network:
+                NSC.publish(MT.REGISTRY, network)
+            report.summary()        # publishes the sim.* gauges
+            if TR.ENABLED:
+                # the phase attribution into metrics.json's perf section
+                # (the registry closes with this run)
+                from ..obs import perf as PF
+                PF.publish(PF.attribute(TR.TRACER.events, wall,
+                                        report.events), MT.REGISTRY)
+        return report
 
     def _sync(self):
         if self.device.type == "cuda":

@@ -74,16 +74,10 @@ class EngineConfig:
 def check_supported(cfg: EngineConfig):
     """Raise NotImplementedError for engine features this port does not
     run yet, naming the ROADMAP item that brings each."""
-    missing = []
-    if cfg.netscope:
-        missing.append("the network observatory (netscope; ROADMAP A7)")
-    if cfg.tracecap > 0:
-        missing.append("the packet-trace ring (tracecap; ROADMAP A7)")
     if cfg.hostedcap > 1:
-        missing.append("hosted applications (hostedcap; ROADMAP A9)")
-    if missing:
         raise NotImplementedError(
-            "not ported to shadow_tpu_torch yet: " + "; ".join(missing))
+            "not ported to shadow_tpu_torch yet: hosted applications "
+            "(hostedcap; ROADMAP A9)")
 
 
 # Digest sections (obs.digest): Hosts field prefix -> the named state

@@ -6,7 +6,10 @@ flags), and when the child crashes it re-runs it with ``--resume
 latest``, which restores the newest valid snapshot of the checkpoint
 store. Retries are capped and back off exponentially; every attempt
 appends a crash-cause record to ``<checkpoint base>.supervisor.jsonl``.
-A resumed run's digest chain equals an uninterrupted run's.
+A resumed run's digest chain equals an uninterrupted run's. With a
+trace or metrics recorder installed, each attempt is a
+``supervisor.attempt`` span and the ``supervisor.*`` counters count
+attempts, crashes, resumes, preemptions and give-ups.
 """
 
 from __future__ import annotations
@@ -162,17 +165,40 @@ class Supervisor:
                                                        "latest"]
 
     def run(self) -> int:
+        from ..obs import metrics as MT
+        from ..obs import trace as TR
+
+        def gave_up():
+            if MT.ENABLED:
+                MT.REGISTRY.counter("supervisor.gave_up").inc()
+
         attempt = crashes = preemptions = 0
         while True:
             attempt += 1
             argv = self._child_argv(attempt)
+            resumed = attempt > 1
             t0 = time.perf_counter()
+            s0 = TR.TRACER.now() if TR.ENABLED else None
             rc = subprocess.call(argv)
             wall = time.perf_counter() - t0
             cause = classify_exit(rc)
+            if TR.ENABLED:
+                TR.TRACER.complete(
+                    "supervisor.attempt", s0,
+                    args={"attempt": attempt, "exit_status": rc,
+                          "cause": cause, "resumed": resumed})
+            if MT.ENABLED:
+                reg = MT.REGISTRY
+                reg.counter("supervisor.attempts").inc()
+                reg.gauge("supervisor.last_exit_status").set(rc)
+                # a preemption is resumable, not a crash
+                if rc not in (0, EXIT_PREEMPTED):
+                    reg.counter("supervisor.crashes").inc()
+                if resumed:
+                    reg.counter("supervisor.resumes").inc()
             self.crash_log.append({
                 "attempt": attempt, "exit_status": rc, "cause": cause,
-                "wall_s": round(wall, 3), "resumed": attempt > 1,
+                "wall_s": round(wall, 3), "resumed": resumed,
                 "argv": argv[1:],      # drop the interpreter path
                 "time": time.strftime("%Y-%m-%dT%H:%M:%S"),
             })
@@ -184,14 +210,18 @@ class Supervisor:
             if rc == 2:
                 # a usage error fails the same way every time
                 self.log("usage error is not a crash; not retrying")
+                gave_up()
                 return rc
             if rc == EXIT_PREEMPTED:
                 preemptions += 1
+                if MT.ENABLED:
+                    MT.REGISTRY.counter("supervisor.preemptions").inc()
                 if preemptions > MAX_PREEMPTIONS:
                     self.log(
                         f"preempted {preemptions} times without "
                         "completing — something SIGTERMs every "
                         "attempt; giving up (state is resumable)")
+                    gave_up()
                     return rc
                 self.log("child was preempted (saved a snapshot); "
                          "resuming from 'latest'")
@@ -203,8 +233,11 @@ class Supervisor:
                     f"giving up after {crashes} crashes "
                     f"({self.max_retries} retries); last cause: "
                     f"{cause}")
+                gave_up()
                 return rc if rc > 0 else 70    # EX_SOFTWARE for signals
             delay = backoff_delay(self.backoff_s, crashes)
             self.log(f"restarting from 'latest' in {delay:.1f}s "
                      f"(retry {crashes}/{self.max_retries})")
+            if MT.ENABLED:
+                MT.REGISTRY.gauge("supervisor.backoff_s").set(delay)
             time.sleep(delay)

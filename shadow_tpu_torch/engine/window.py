@@ -14,7 +14,9 @@ Counterpart of ``shadow_tpu/engine/window.py``. Each window does:
    chained.
 2. **cap_peaks** — peak occupancy of the fixed-capacity arrays.
 3. **exchange** — route the outboxes, roll for loss, stable-sort by
-   destination, merge into the destination queues, carry the rest.
+   destination, merge into the destination queues, carry the rest;
+   with ``cfg.tracecap`` the departures and arrivals of hosts with
+   ``logpcap`` go into their packet-trace rings (obs.pcap).
 4. **advance** — the next window opens at the global minimum next event
    (or carried arrival), with the reference's anti-livelock rule.
 
@@ -271,10 +273,42 @@ def _carry_outbox(st, pkts, stimes, arrival, stay, O):
                                  SIMTIME_MAX).min(1).values)
 
 
-def merge_arrivals(st, in_pkt, in_time):
+def _trace_append(st, pkts, times, valid, dirv: int, on):
+    """Append the records of each row's valid slots ([H, n] `times` and
+    `valid`, [H, n, W] `pkts`), in slot order, to the packet-trace ring
+    (obs.pcap) of every row where `on` holds: the rank is a cumsum over
+    the row's valid slots, writes at positions >= TC are dropped,
+    ``tr_cnt`` saturates at TC and the overflow is added to
+    ``tr_drop``."""
+    H, TC = st.tr_time.shape
+    take = valid & on[:, None]
+    k = take.sum(1, dtype=torch.int32)
+    pos = st.tr_cnt[:, None] + torch.cumsum(take, 1, dtype=torch.int32) - 1
+    # rows write into one extra column, which takes the dropped records
+    tgt = torch.where(take & (pos < TC), pos, TC).to(torch.int64)
+
+    def put(ring, vals):
+        ext = torch.cat([ring, ring[:, :1]], 1)
+        idx = tgt.view(tgt.shape + (1,) * (ring.dim() - 2)).expand(
+            tgt.shape + ring.shape[2:])
+        ext.scatter_(1, idx, vals.to(ring.dtype))
+        ring.copy_(ext[:, :TC])
+
+    put(st.tr_time, times)
+    put(st.tr_pkt, pkts)
+    put(st.tr_dir, torch.full_like(tgt, dirv))
+    st.tr_drop += (st.tr_cnt + k - TC).clamp(min=0)
+    st.tr_cnt.copy_((st.tr_cnt + k).clamp(max=TC))
+
+
+def merge_arrivals(st, in_pkt, in_time, hp=None, cfg: EngineConfig = None):
     """Merge each host's inbound arrivals into its queue free slots
-    (eq_seq = eq_ctr + free-rank). The intake already fits the
+    (eq_seq = eq_ctr + free-rank), after their rx records go to the
+    trace ring when `cfg` traces. The intake already fits the
     headroom, so ST_PKTS_DROP_Q counts only an engine bug."""
+    if cfg is not None and cfg.tracecap:
+        _trace_append(st, in_pkt, in_time, in_time != SIMTIME_MAX, 0,
+                      hp.pcap_on)
     IN = in_time.shape[1]
     k = (in_time != SIMTIME_MAX).sum(1)
     free = st.eq_time == SIMTIME_MAX
@@ -332,11 +366,16 @@ def exchange(st, hp, sh, cfg: EngineConfig, seed: int):
     kept = torch.zeros(N, dtype=torch.bool, device=pkts.device)
     kept[order] = kept_sorted
 
+    if cfg.tracecap:
+        # tx records of the packets departing this window, lost ones
+        # included (a carried packet is traced in the window it ships)
+        _trace_append(st, pkts.view(H, O, -1), stimes.view(H, O),
+                      (kept | net_dropped).view(H, O), 1, hp.pcap_on)
     stay = deliver & ~kept
     st.stats[:, ST_PKTS_DROP_NET] += net_dropped.view(H, O).sum(1)
     st.stats[:, ST_DEFER_FANIN] += stay.view(H, O).sum(1)
     _carry_outbox(st, pkts, stimes, arrival, stay, O)
-    merge_arrivals(st, in_pkt, in_time)
+    merge_arrivals(st, in_pkt, in_time, hp, cfg)
 
 
 def update_cap_peaks(st):

@@ -21,6 +21,7 @@ from ..core.simtime import SIMTIME_ONE_SECOND
 from ..engine import equeue
 from ..engine.defs import (EV_NIC_TX, EV_PKT, ST_OUTBOX_DROP,
                            ST_PKTS_DROP_BUF, ST_PKTS_SENT, ST_TXQ_DROP)
+from ..obs import netscope
 from . import packet as P
 
 LOOPBACK_DELAY = 1  # ns, the reference's local-delivery task delay
@@ -175,4 +176,8 @@ def rx_admit(st, hp, m, now, pkt):
     new_until = torch.maximum(st.nic_rx_until, now) + tx_duration(wire, bw)
     set_where(st.nic_rx_until, m & keep, new_until)
     col_add(st.stats, ST_PKTS_DROP_BUF, m & ~keep)
+    # queue-delay distribution: the rx backlog each admitted packet
+    # waits behind
+    if netscope.on(st):
+        netscope.observe(st, m & keep, netscope.NS_QUEUE, backlog_ns // 1000)
     return keep

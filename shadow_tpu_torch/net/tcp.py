@@ -30,6 +30,7 @@ from ..engine.defs import (EV_APP, EV_TCP_CLOSE, EV_TCP_TIMER, ST_BYTES_RECV,
                            ST_BYTES_SENT, ST_RETRANSMIT, ST_SACK_RENEGE,
                            ST_SOCK_FAIL, WAKE_ACCEPT, WAKE_CONNECTED,
                            WAKE_EOF, WAKE_SENT, WAKE_SOCKET)
+from ..obs import netscope
 from . import congestion as CC
 from . import nic
 from . import packet as P
@@ -299,6 +300,11 @@ def tcp_pull(st, hp, sh, m, now, slot):
                               new_nxt - torch.maximum(snd_max, snd_nxt), 0)
     col_add(st.stats, ST_BYTES_SENT, m, fresh_bytes)
     col_add(st.stats, ST_RETRANSMIT, m & (is_rex | gbn))
+    # retransmit-interval distribution: the RTO in force at each
+    # retransmission
+    if netscope.on(st):
+        netscope.observe(st, m & (is_rex | gbn), netscope.NS_RETX,
+                         _g(st, "sk_rto", sl) // 1000)
     rtt_seq = _g(st, "sk_rtt_seq", sl)
     time_it = is_data & ~is_rex & ~gbn & (rtt_seq < 0)
     _set(st, sl, m,

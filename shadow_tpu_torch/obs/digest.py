@@ -221,7 +221,7 @@ class DigestRecorder:
 
 def build_manifest(scenario, cfg, seed: int, sh, host_names: list,
                    recorder: DigestRecorder, device,
-                   checkpoint_path: str = None,
+                   checkpoint_path: str = None, pcap: bool = False,
                    faults: bool = False) -> dict:
     """What decides that two chains are comparable: the reference's
     manifest keys, with the torch device and versions."""
@@ -255,7 +255,9 @@ def build_manifest(scenario, cfg, seed: int, sh, host_names: list,
         "digest_every": recorder.every,
         "host_detail": recorder.host_detail,
         "shards": 1,
-        "pcap": False,
+        # pcap drains reset the trace rings chunk-wise: a pcap run's
+        # trace_ring section differs from a plain run's
+        "pcap": bool(pcap),
         "faults": bool(faults),
         "hosted": False,
         "platform": str(device),

@@ -294,3 +294,50 @@ def test_tgen_multiproc_cuda_equals_cpu(cuda_device):
     bad = [f for f in out[0][2]
            if not np.array_equal(out[0][2][f], out[1][2][f])]
     assert not bad, bad
+
+
+@pytest.mark.cuda
+def test_telemetry_cuda_equals_cpu(cuda_device):
+    """netscope.observe into all four kinds and the exchange's
+    packet-trace ring (tx and rx records, rows that overflow) on the
+    card equal the CPU."""
+    from types import SimpleNamespace
+
+    from shadow_tpu_torch.obs import netscope as NS
+    rng = np.random.RandomState(14)
+    vals = rng.randint(-5, 1 << 34, 50_000).astype(np.int64)
+    on = rng.rand(vals.size) < 0.7
+    hists = []
+    for dev in ("cpu", cuda_device):
+        st = SimpleNamespace(ns_hist=torch.zeros(
+            (vals.size, NS.NS_KINDS, NS.NS_BUCKETS), dtype=torch.int64,
+            device=dev))
+        for k in range(NS.NS_KINDS):
+            NS.observe(st, t(np.roll(on, k)).to(dev), k,
+                       t(np.roll(vals, 5 * k)).to(dev))
+        hists.append(st.ns_hist.cpu())
+    assert torch.equal(*hists) and int(hists[0].sum()) > 0
+
+    TC = 10
+    a = random_state(14)
+    a["tr_time"] = np.zeros((H, TC), np.int64)
+    a["tr_pkt"] = np.zeros((H, TC, P.PKT_WORDS), np.int32)
+    a["tr_dir"] = np.zeros((H, TC), np.int32)
+    a["tr_cnt"] = rng.randint(0, TC + 1, H).astype(np.int32)
+    a["tr_drop"] = np.zeros(H, np.int32)
+    hp_np = random_params_np(14)
+    hp_np["pcap_on"] = rng.rand(H) < 0.6
+    lat = np.full((1, 1), 5 * 10**6, np.int64)
+    rel = np.full((1, 1), 0.8, np.float32)
+    cfg = EngineConfig(num_hosts=H, tracecap=TC, **CAPS)
+    out = []
+    for dev in ("cpu", cuda_device):
+        st = Hosts(**{k: t(v).to(dev) for k, v in a.items()})
+        hp = HostParams(**{k: t(v).to(dev) for k, v in hp_np.items()})
+        sh = make_shared(lat, rel, 10**10, 10**6, dev, seed=14,
+                         host_vertex=np.zeros(H, np.int32))
+        W.exchange(st, hp, sh, cfg, 14)
+        out.append(st.numpy())
+    bad = [f for f in out[0] if not np.array_equal(out[0][f], out[1][f])]
+    assert not bad, bad
+    assert out[0]["tr_drop"].sum() > 0

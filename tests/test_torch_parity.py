@@ -234,19 +234,21 @@ def test_phase_clock_sees_every_window():
 
 def test_unported_features_raise():
     """Engine features of later slices raise NotImplementedError naming
-    their ROADMAP item; the CPU model and fault schedules build."""
-    Simulation(phold_scenario(n=4, stop=2), device="cpu",
-               engine_cfg=EngineConfig(num_hosts=4, cpu_model=True))
+    their ROADMAP item; the CPU model, fault schedules, netscope and the
+    packet-trace ring build."""
     from shadow_tpu_torch.core.config import FaultSpec
     scen = phold_scenario(n=4, stop=2)
     scen.faults = [FaultSpec(kind="host_down", at=10**9, host="node1")]
     assert Simulation(scen, device="cpu").injector is not None
-    for knobs, item in ((dict(netscope=True), "A7"),
-                        (dict(tracecap=8), "A7"),
-                        (dict(hostedcap=4), "A9")):
-        with pytest.raises(NotImplementedError, match=item):
-            Simulation(phold_scenario(n=4, stop=2), device="cpu",
-                       engine_cfg=EngineConfig(num_hosts=4, **knobs))
+    for knobs in (dict(cpu_model=True), dict(netscope=True),
+                  dict(tracecap=8)):
+        sim = Simulation(phold_scenario(n=4, stop=2), device="cpu",
+                         engine_cfg=EngineConfig(num_hosts=4, **knobs))
+        assert all(getattr(sim.cfg, k) == v for k, v in knobs.items())
+    assert sim.hosts.tr_time.shape == (4, 8)
+    with pytest.raises(NotImplementedError, match="A9"):
+        Simulation(phold_scenario(n=4, stop=2), device="cpu",
+                   engine_cfg=EngineConfig(num_hosts=4, hostedcap=4))
 
 
 def test_cuda_default_needs_a_card():
