@@ -37,9 +37,8 @@ The timed phases run first, each alone on the card and the host:
               through Simulation: GETs and PUTs complete, no walk branch
               is lost, no socket table or event queue overflows; launches
               per pass and the busy share from a span of its passes.
-
-The checks that time nothing run after them, beside phases 7 and 17,
-each in a process of its own on the same card:
+The checks that time nothing run after them, beside phases 7, 17 and
+20, each in a process of its own on the same card:
 
 7. cli-tgen — examples/tgen-web-bulk.xml through ``python -m
               shadow_tpu_torch`` on the card: every web host completes
@@ -75,6 +74,11 @@ each in a process of its own on the same card:
               (the CPU halves in a child process): equal stats, Hosts
               fields, netscope JSONL bytes, pcap bytes and heartbeat
               lines (apart from dev=, waste= and the getrusage columns).
+21. hosted-gpu=cpu — tests/test_torch_hosting.py's shapes (a hosted UDP
+              pinger and TCP putter, hosted beside modeled on one host,
+              the loopback self-channel, a pipe, the cping C plugin) on
+              cuda and on cpu: equal stats, windows, Hosts fields (the
+              wake rings included) and what the apps saw.
 17. socks10k-faults — socks10k's 10,000 hosts to 3 sim-s under a fault
               schedule (relay1-50 down over [2.3 s, 2.7 s), 5% loss
               between relay51 and server1 over [2.2 s, 2.8 s), +5 ms
@@ -84,6 +88,22 @@ each in a process of its own on the same card:
               resumes from the snapshot taken inside the host_down and
               loss episodes (by its fault schedule position) and must
               end with run A's chain, final stats and fault log.
+
+20. hosted-shim-64 — 64 unmodified binaries, each behind its own
+              LD_PRELOAD shim, through Simulation on the two-vertex
+              topology: srv1..srv8 run examples/plugins/epserver (28
+              serves each), cli1..cli56 epclient (4 uploads of 100 KiB to
+              srv<1 + i mod 8>, starting at 2 s + i x 10 ms), 60 sim-s:
+              every output reads its transfers, 64 exits with status 0,
+              the servers received 56 x 409,600 bytes, no capacity
+              overflow; it prints its events, windows, passes, wall,
+              events/s and the share of the wall spent in
+              ``hosting.step`` (the CPU tier between windows). It takes
+              ~230 s alone on the card, so it runs beside the untimed
+              checks; its CPU twin runs in another process and must give
+              equal stats, windows, Hosts fields, digest records (their
+              state sections), op-stream digest and child outputs
+              (checked last).
 
 ``--phases tgen-1k-cpu`` (never part of the default run) holds tgen-1k
 itself, all 1,000 hosts to 2.25 sim-s, on cuda against cpu: equal
@@ -97,6 +117,10 @@ device's busy share against the unprofiled wall, the top kernels).
 ``--phases a,b`` runs only the named phases of the default run (or of
 ``--profile``).
 
+The binaries, the shim library and the C plugin build with cc into
+the port's build directory (``shadow_tpu_torch/hosting/build.py``) at
+first use; a failed build fails the run.
+
 The JAX package has no Pallas kernel, so the port has no kernel:
 the port's device work is plain PyTorch, and the ``kernels`` line is an
 empty list. The last line is the contract line
@@ -105,6 +129,7 @@ non-zero before printing any result.
 """
 
 import contextlib
+import ctypes
 import io
 import json
 import os
@@ -122,9 +147,16 @@ def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+# the script's start, shared with its child processes
+T0_ENV = "CHIP_SMOKE_T0"
+
+
 def phase(name, wall, **kv):
+    """One passed phase's line; `at` is the script's wall when it ended."""
     extra = " ".join(f"{k}={v}" for k, v in kv.items())
-    print(f"phase {name}: ok wall={wall:.3f}s {extra}".rstrip(), flush=True)
+    at = time.time() - float(os.environ[T0_ENV])
+    print(f"phase {name}: ok wall={wall:.3f}s at={at:.1f}s {extra}".rstrip(),
+          flush=True)
 
 
 def phold_scenario(n, stop_s, loss=0.0, bw_kib=102400, mean="500ms"):
@@ -185,9 +217,13 @@ def run(scen, cfg, device):
 
 
 def rates(rep):
-    s = rep.summary()
+    return rates_of(rep.summary())
+
+
+def rates_of(s):
+    """A run's summary -> the figures every timed phase prints."""
     return dict(events=s["events"], windows=s["windows"],
-                passes=s["passes"], wall_s=round(rep.wall_seconds, 3),
+                passes=s["passes"], wall_s=round(s["wall_seconds"], 3),
                 events_per_s=round(s["events_per_sec"], 1),
                 sim_s_per_wall_s=round(s["speedup"], 4))
 
@@ -512,6 +548,418 @@ def socks10k_sim():
 
 
 
+# hosted-shim-64: 8 epserver and 56 epclient binaries behind the shim
+SHIM_SERVERS, SHIM_CLIENTS = 8, 56
+SHIM_XFERS, SHIM_BYTES = 4, 102_400
+# the automatic caps of this topology (engine.sim.auto_engine_config:
+# one window of a 2 MiB/s link) with a socket table for a server's 7
+# connections: test_shim.py's qcap=32 lets a server's queue fill with
+# later arrivals while an earlier one waits in an outbox, which stalls
+# the window at that arrival
+SHIM_CFG = dict(qcap=256, scap=16, obcap=64, incap=128, txqcap=16,
+                hostedcap=32)
+
+
+def shim_bins():
+    """examples/plugins' epserver and epclient, built with cc into the
+    port's build directory (hosting.build) -> {name: path}."""
+    from shadow_tpu_torch.hosting.build import build_dir, compile_c
+    out = {}
+    for name in ("epserver", "epclient"):
+        src = os.path.join(HERE, "examples", "plugins", name + ".c")
+        out[name] = compile_c(["cc", "-O2", src, "-o"],
+                              os.path.join(build_dir(), name), src)
+    return out
+
+
+def shim64_scenario(bins, outdir, xfers=SHIM_XFERS):
+    """64 real processes on the two-vertex topology: srv1..srv8 each
+    serve 7 clients' uploads; cli<i+1> uploads `xfers` x 100 KiB to
+    srv<1 + i mod 8>, starting at 2 s + i x 10 ms; each child's stdout
+    goes to <outdir>/<host>.out."""
+    from shadow_tpu_torch.core.config import HostSpec, ProcessSpec, Scenario
+
+    def shim(host, start_ns, argv):
+        return HostSpec(id=host, processes=[ProcessSpec(
+            plugin="hosted:shim", start_time=start_ns,
+            arguments=f"out={os.path.join(outdir, host + '.out')} "
+                      f"cmd={argv}")])
+
+    per_srv = SHIM_CLIENTS // SHIM_SERVERS * xfers
+    hosts = [shim(f"srv{k + 1}", 10**9, f"{bins['epserver']} 8080 {per_srv}")
+             for k in range(SHIM_SERVERS)]
+    hosts += [shim(f"cli{i + 1}", 2 * 10**9 + i * 10**7,
+                   f"{bins['epclient']} srv{1 + i % SHIM_SERVERS} 8080 "
+                   f"{SHIM_BYTES} {xfers}") for i in range(SHIM_CLIENTS)]
+    return Scenario(stop_time=60 * 10**9, topology_graphml=two_poi_topology(),
+                    hosts=hosts)
+
+
+def shim64_run(device, bins, outdir, xfers=SHIM_XFERS, digest=None):
+    """hosted-shim-64 on `device` -> (stats, Hosts arrays, summary, exit
+    report, the hosting runtime's op-stream digests, the seconds spent in
+    hosting.step and in its op replay (`_flush`), {host: child output},
+    the capacity report)."""
+    from shadow_tpu_torch.engine.sim import Simulation
+    from shadow_tpu_torch.engine.state import EngineConfig
+    sim = Simulation(shim64_scenario(bins, outdir, xfers),
+                     engine_cfg=EngineConfig(num_hosts=64, **SHIM_CFG),
+                     device=device)
+    step, flush, spent = sim.hosting.step, sim.hosting._flush, [0.0, 0.0]
+
+    def timed(fn, i):
+        def call(*a):
+            t0 = time.perf_counter()
+            fn(*a)
+            spent[i] += time.perf_counter() - t0
+        return call
+
+    sim.hosting.step = timed(step, 0)
+    sim.hosting._flush = timed(flush, 1)
+    t0, windows = time.perf_counter(), [0]
+
+    def progress(label):
+        if label == "advance":
+            windows[0] += 1
+            if windows[0] % 500 == 0:
+                print(f"  hosted-shim-64 ({device}): {windows[0]} windows, "
+                      f"wall {time.perf_counter() - t0:.1f}s", flush=True)
+
+    rep = sim.run(digest=digest, digest_every=64, clock=progress)
+    outs = {n: open(os.path.join(outdir, n + ".out")).read()
+            for n in rep.host_names}
+    return (*arrays(sim, rep), rep.summary(), rep.hosted,
+            sim.hosting.digest_state(), spent, outs,
+            rep.capacity_report())
+
+
+def _shim64_gpu_child(conn):
+    """A child process: phase 20 on the card -> its result, or the
+    failure."""
+    from shadow_tpu_torch.engine import defs
+    try:
+        conn.send((None, shim64_phase(defs)))
+    except BaseException as e:
+        conn.send((f"{type(e).__name__}: {e}", None))
+        raise
+
+
+def _shim64_cpu_child(conn):
+    """A child process: hosted-shim-64's CPU twin -> its shim64_run
+    result and the digest chain's bytes, or the failure."""
+    import tempfile
+    try:
+        torch.set_num_threads(1)
+        with tempfile.TemporaryDirectory() as d:
+            dg = os.path.join(d, "chain.jsonl")
+            res = shim64_run("cpu", shim_bins(), d, digest=dg)
+            conn.send((None, res, open(dg, "rb").read()))
+    except BaseException as e:
+        conn.send((f"{type(e).__name__}: {e}", None, None))
+        raise
+
+
+def shim64_phase(defs):
+    """20. hosted-shim-64 on the card: 64 real processes behind the
+    shim, every upload and serve done, 64 clean exits -> (the run's
+    result, its digest chain) for the CPU twin to equal."""
+    import tempfile
+    bins = shim_bins()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        dg = os.path.join(d, "chain.jsonl")
+        res = shim64_run("cuda", bins, d, digest=dg)
+        chain = open(dg, "rb").read()
+    st, _, s, hosted, digests, (step_s, flush_s), outs, cap = res
+    want_cli = f"transfers={SHIM_XFERS} bytes={SHIM_XFERS * SHIM_BYTES}"
+    per_srv = SHIM_CLIENTS // SHIM_SERVERS * SHIM_XFERS
+    want_srv = f"transfers={per_srv} bytes={per_srv * SHIM_BYTES}"
+    short = [n for n, o in outs.items()
+             if (want_srv if n.startswith("srv") else want_cli) not in o]
+    if short:
+        fail(f"hosted-shim-64: hosts short of their transfers: {short} "
+             f"(e.g. {outs[short[0]]!r})")
+    bad = {n: v for n, v in hosted.items()
+           if v.get("exit_status") != 0 or not v.get("clean")}
+    if len(hosted) != 64 or bad:
+        fail(f"hosted-shim-64: {len(hosted)} exits, not clean: {bad}")
+    recv = int(st[:SHIM_SERVERS, defs.ST_BYTES_RECV].sum())
+    if recv != SHIM_CLIENTS * SHIM_XFERS * SHIM_BYTES:
+        fail(f"hosted-shim-64: servers received {recv} bytes")
+    over = [r for r in cap if r["overflow"]]
+    if over:
+        fail(f"hosted-shim-64: capacity overflow {over}")
+    phase("hosted-shim-64", time.perf_counter() - t0,
+          **rates_of(s), hosting_step_s=round(step_s, 3),
+          hosting_step_share=round(step_s / s["wall_seconds"], 4),
+          op_replay_s=round(flush_s, 3),
+          bytes_recv_servers=recv, exits_clean=len(hosted),
+          capacity=json.dumps({r["array"]: r["peak"] for r in cap},
+                              separators=(",", ":")))
+    return res, chain
+
+
+def _state_records(chain):
+    """A digest chain's records without what depends on the process:
+    each shim child's request-stream hash covers its virtual fd numbers,
+    which are real kernel fds and so follow the fds the simulating
+    process holds (a run on the card and its CPU twin are two
+    processes); the records' state sections and the op-stream digest
+    do not."""
+    out = []
+    for line in chain.splitlines():
+        rec = json.loads(line)
+        rec.pop("chain")
+        rec["sections"].pop("hosted")
+        rec["hosted"].pop("shim", None)
+        out.append(rec)
+    return out
+
+
+def shim64_compare(gpu_child, child, canonicalize_state):
+    """hosted-shim-64's CPU twin equals the card's run: stats, windows,
+    Hosts fields, the digest records' state sections, the op-stream
+    digest and every child's output."""
+    (err, gpu), _ = gpu_child.result()
+    if err:
+        fail(f"hosted-shim-64: {err}")
+    ((gst, ga, gs, ghosted, gdig, _, gouts, _), gchain) = gpu
+    (err, res, chain), waited = child.result()
+    if err:
+        fail(f"hosted-shim-64 cpu twin: {err}")
+    cst, ca, cs, chosted, cdig, _, couts, _ = res
+    raw = _same_on_both("hosted-shim-64", (gst, ga), (cst, ca),
+                        canonicalize_state)
+    if gs["windows"] != cs["windows"]:
+        fail(f"hosted-shim-64: {gs['windows']} windows on cuda, "
+             f"{cs['windows']} on cpu")
+    if gdig["ops"] != cdig["ops"] or _state_records(gchain) != \
+            _state_records(chain):
+        fail("hosted-shim-64: op-stream digests or digest records differ "
+             "between cuda and cpu")
+    if gouts != couts or ghosted != chosted:
+        fail("hosted-shim-64: child outputs or exit reports differ")
+    phase("hosted-shim-64-cpu", waited, cpu_wall=round(cs["wall_seconds"],
+                                                        3),
+          fields_equal=82, raw_differing=raw, ops_digest=gdig["ops"],
+          chain_records=len(chain.splitlines()))
+
+
+class _App:
+    """No-op callbacks of the HostedApp surface."""
+
+    def on_start(self, os):
+        pass
+
+    def on_timer(self, os, tag):
+        pass
+
+    def on_connected(self, os, sock, **_identity):
+        pass
+
+    def on_accept(self, os, sock, tag, **_identity):
+        pass
+
+    def on_eof(self, os, sock):
+        pass
+
+    def on_sent(self, os, sock):
+        pass
+
+    def on_dgram(self, os, sock, src, sport, nbytes, aux):
+        pass
+
+
+class _Pinger(_App):
+    """tests/test_torch_hosting.py's UDP pinger: 4 datagrams, 1 s apart."""
+
+    def __init__(self, args):
+        self.sent = self.echoed = 0
+
+    def on_start(self, os):
+        self.sock = os.udp_open()
+        self.on_timer(os, 0)
+
+    def on_timer(self, os, tag):
+        os.sendto(self.sock, "srv", 8000, 64, aux=42)
+        self.sent += 1
+        if self.sent < 4:
+            os.timer(10**9)
+
+    def on_dgram(self, os, sock, src, sport, nbytes, aux):
+        self.echoed += 1
+
+    def seen(self):
+        return self.sent, self.echoed
+
+
+class _Putter(_App):
+    """A 51,200-byte TCP put to srv:80, then close."""
+
+    def __init__(self, args):
+        self.done = 0
+
+    def on_start(self, os):
+        os.tcp_connect("srv", 80)
+
+    def on_connected(self, os, sock, **_identity):
+        os.write(sock, 51200)
+        os.close(sock)
+
+    def on_sent(self, os, sock):
+        self.done += 1
+
+    def seen(self):
+        return self.done
+
+
+class _SelfChannel(_App):
+    """A TCP connection to itself over loopback carrying `args` bytes."""
+
+    def __init__(self, args):
+        self.size, self.done, self.eofs = int(args), 0, 0
+
+    def on_start(self, os):
+        os.tcp_listen(7000)
+        os.tcp_connect(os.host_id, 7000)
+
+    def on_connected(self, os, sock, **_identity):
+        os.write(sock, self.size)
+        os.close(sock)
+
+    def on_sent(self, os, sock):
+        self.done += 1
+
+    def on_eof(self, os, sock):
+        self.eofs += 1
+        os.close(sock)
+
+    def seen(self):
+        return self.done, self.eofs
+
+
+class _PipeApp(_App):
+    """`args` bytes through an os.pipe() pair."""
+
+    def __init__(self, args):
+        self.size, self.got, self.eofs = int(args), 0, 0
+
+    def on_start(self, os):
+        self.a, self.b = os.pipe()
+        os.timer(1000)
+
+    def on_timer(self, os, tag):
+        os.write(self.a, self.size)
+        os.close(self.a)
+
+    def on_dgram(self, os, sock, src, sport, nbytes, aux):
+        self.got += nbytes
+
+    def on_eof(self, os, sock):
+        self.eofs += 1
+        os.close(sock)
+
+    def seen(self):
+        return self.got, self.eofs
+
+
+def _hosted_shapes():
+    """tests/test_torch_hosting.py's shapes -> name -> (scenario maker,
+    the hosted host's index, what its app must have seen)."""
+    from shadow_tpu_torch.core.config import HostSpec, ProcessSpec, Scenario
+
+    def proc(plugin, start_s, args=""):
+        return ProcessSpec(plugin=plugin, start_time=int(start_s * 10**9),
+                           arguments=args)
+
+    def scen(stop_s, hosts):
+        hosts = hosts + [HostSpec(id=f"pad{i}", processes=[
+            proc("pingserver", 1000, "port=9")])
+            for i in range(3 - len(hosts))]
+        return Scenario(stop_time=stop_s * 10**9,
+                        topology_graphml=two_poi_topology(), hosts=hosts)
+
+    srv_bulk = HostSpec(id="srv", processes=[proc("bulkserver", 1,
+                                                  "port=80")])
+    srv_ping = HostSpec(id="srv", processes=[proc("pingserver", 1,
+                                                  "port=8000")])
+
+    def solo(plugin, arg):
+        return lambda: scen(10, [HostSpec(id="solo", processes=[
+            proc(plugin, 1, arg)])])
+
+    return {
+        "udp-ping": (lambda: scen(10, [srv_ping, HostSpec(
+            id="cli", processes=[proc("hosted:cs-pinger", 2)])]), 1,
+            (4, 4)),
+        "tcp-put": (lambda: scen(15, [srv_bulk, HostSpec(
+            id="cli", processes=[proc("hosted:cs-putter", 2)])]), 1, 1),
+        "hosted+modeled": (lambda: scen(15, [
+            HostSpec(id="srv", processes=[
+                proc("bulkserver", 1, "port=80"),
+                proc("pingserver", 1, "port=8000")]),
+            HostSpec(id="cli", processes=[
+                proc("ping", 2, "peer=srv port=8000 count=3 interval=1s "
+                     "size=64"),
+                proc("hosted:cs-putter", 3)])]), 1, 1),
+        "loopback": (solo("hosted:cs-selfchannel", "50000"), 0, (1, 2)),
+        "pipe": (solo("hosted:cs-pipeapp", "200000"), 0, (200000, 1)),
+        "cping": (lambda: scen(8, [srv_ping, HostSpec(
+            id="cli", processes=[proc(
+                "hosted:cs-cping", 2, "peer=srv port=8000 count=4 "
+                "interval_ms=800 size=100")])]), 1, None),
+    }
+
+
+def hosted_gpu_cpu_phase(canonicalize_state):
+    """21. the hosted tier on cuda and on cpu: equal stats, windows and
+    Hosts fields (wake rings included) and equal app observations."""
+    from shadow_tpu_torch import hosting
+    from shadow_tpu_torch.apps.base import (APP_BULK_SERVER, APP_HOSTED,
+                                            APP_PING, APP_PING_SERVER)
+    from shadow_tpu_torch.engine.sim import Simulation
+    from shadow_tpu_torch.engine.state import EngineConfig
+    from shadow_tpu_torch.hosting import cplugin
+    t0 = time.perf_counter()
+    for name, cls in (("cs-pinger", _Pinger), ("cs-putter", _Putter),
+                      ("cs-selfchannel", _SelfChannel),
+                      ("cs-pipeapp", _PipeApp)):
+        hosting.register(name, cls)
+    cplugin.register_c_plugin(
+        "cs-cping", os.path.join(HERE, "examples", "plugins", "cping.c"))
+    cfg = EngineConfig(num_hosts=3, qcap=32, scap=8, obcap=16, incap=32,
+                       txqcap=8, procs_per_host=2,
+                       app_kinds=(0, APP_PING, APP_PING_SERVER,
+                                  APP_BULK_SERVER, APP_HOSTED))
+    for name, (mk, at, want) in _hosted_shapes().items():
+        runs = []
+        for device in ("cuda", "cpu"):
+            sim = Simulation(mk(), engine_cfg=cfg, device=device)
+            app = sim.hosting.apps[at]
+            rep = sim.run()
+            if hasattr(app, "seen"):
+                seen = app.seen()
+            else:
+                for fn in ("plugin_get_sent", "plugin_get_echoed"):
+                    getattr(app.lib, fn).argtypes = [ctypes.c_void_p]
+                seen = (app.lib.plugin_get_sent(app.state),
+                        app.lib.plugin_get_echoed(app.state))
+            runs.append((rep, arrays(sim, rep), seen))
+        (grep, ga, gseen), (crep, ca, cseen) = runs
+        raw = _same_on_both(f"hosted-gpu=cpu {name}", ga, ca,
+                            canonicalize_state)
+        if grep.windows != crep.windows or gseen != cseen:
+            fail(f"hosted-gpu=cpu {name}: windows {grep.windows}/"
+                 f"{crep.windows}, apps saw {gseen}/{cseen}")
+        if want is not None and gseen != want:
+            fail(f"hosted-gpu=cpu {name}: the app saw {gseen}, not {want}")
+        print(f"  {name}: events={grep.events} windows={grep.windows} "
+              f"app_saw={gseen} cuda_wall={grep.wall_seconds:.3f}s "
+              f"cpu_wall={crep.wall_seconds:.3f}s fields_equal=82 "
+              f"raw_differing={raw}", flush=True)
+    phase("hosted-gpu=cpu", time.perf_counter() - t0)
+
+
 def profile_run(only):
     """--profile: wall split and profiler runs of phold-4096 and
     gossip-100k (socks10k's profiled span is part of its phase)."""
@@ -532,6 +980,7 @@ def main():
     from shadow_tpu_torch.engine.window import canonicalize_state
 
     t_all = time.perf_counter()
+    os.environ.setdefault(T0_ENV, str(time.time()))
     # 1. device
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -571,12 +1020,17 @@ def main():
     if only and "tgen-1k-cpu" in only:
         tgen1k_cpu_phase(canonicalize_state)
 
-    # 17. and 7. in two more processes on the same card, beside 8.-16.:
-    # their passes are host-bound, and the card serves a few such
-    # processes at about the speed of one each (PERF.md §6)
+    # 17., 7. and 20. (with 20.'s CPU twin) in processes of their own on
+    # the same card, beside 8.-16. and 19.-21.: their passes are
+    # host-bound, and the card serves a few such processes at about the
+    # speed of one each (PERF.md §6)
     faults = (Child(_socks10k_faults_child, "socks10k-faults")
               if want("socks10k-faults") else None)
     tgen_cli = CliTgen() if want("cli-tgen") else None
+    shim_gpu = shim_cpu = None
+    if want("hosted-shim-64"):
+        shim_gpu = Child(_shim64_gpu_child, "hosted-shim-64")
+        shim_cpu = Child(_shim64_cpu_child, "hosted-shim-64-cpu")
     try:
         if want("log1p"):
             log1p_phase(R)
@@ -598,14 +1052,18 @@ def main():
             cpu_model_gpu_cpu_phase()
         if want("telemetry-gpu=cpu"):
             telemetry_gpu_cpu_phase(canonicalize_state)
+        if want("hosted-gpu=cpu"):
+            hosted_gpu_cpu_phase(canonicalize_state)
         if tgen_cli:
             tgen_cli.finish()
         if faults:
             err, _ = faults.result()
             if err:
                 fail(f"socks10k-faults: {err}")
+        if shim_gpu:
+            shim64_compare(shim_gpu, shim_cpu, canonicalize_state)
     finally:
-        for child in (tgen_cli, faults):
+        for child in (tgen_cli, faults, shim_gpu, shim_cpu):
             if child:
                 child.stop()
 

@@ -17,21 +17,21 @@
         [--until-complete [--max-retries N] [--retry-backoff SEC]]
 
 Runs on the card unless ``--device cpu`` is given. Prints the applied
-faults, the summary, the capacity report and, with ``--summary-json``,
-the summary as one JSON line last. The flags have the reference CLI's
-meanings (``python -m shadow_tpu``). Telemetry: ``--heartbeat-frequency``
-logs tracker heartbeats, ``--pcap-dir`` writes pcap files for hosts
-with ``logpcap``, ``--trace`` a Chrome trace-event timeline
-(``tools/trace_report.py``), ``--metrics`` a metrics.json snapshot with
-per-chunk lines beside it, ``--netscope`` the network observatory's
-time-series (the summary gains exact RTT and completion tails), and
-``--perf`` prints the per-phase wall attribution and appends one entry
-to the perf ledger (``perf/ledger.jsonl`` unless a path is given;
-``SHADOW_TPU_LEDGER=off`` disables appends). ``--until-complete``
+faults, each hosted process's exit (``hosted <host>: exit_status=...``,
+a warning unless it was clean), the summary, the capacity report and,
+with ``--summary-json``, the summary as one JSON line last. The flags
+have the reference CLI's meanings (``python -m shadow_tpu``). Telemetry:
+``--heartbeat-frequency`` logs tracker heartbeats, ``--pcap-dir`` writes
+pcap files for hosts with ``logpcap``, ``--trace`` a Chrome trace-event
+timeline (``tools/trace_report.py``), ``--metrics`` a metrics.json
+snapshot with per-chunk lines beside it, ``--netscope`` the network
+observatory's time-series (the summary gains exact RTT and completion
+tails), and ``--perf`` prints the per-phase wall attribution and appends
+one entry to the perf ledger (``perf/ledger.jsonl`` unless a path is
+given; ``SHADOW_TPU_LEDGER=off`` disables appends). ``--until-complete``
 re-runs ``python -m shadow_tpu_torch`` in a child process with
-``--resume latest`` after each crash, and SIGTERM under
-``--checkpoint`` saves a snapshot at the next chunk boundary and exits
-75.
+``--resume latest`` after each crash, and SIGTERM under ``--checkpoint``
+saves a snapshot at the next chunk boundary and exits 75.
 """
 
 from __future__ import annotations
@@ -221,7 +221,9 @@ def main(argv=None) -> int:
                    help="restore a snapshot and continue: a .npz, a "
                         "store base, or 'latest' for the newest valid "
                         "snapshot of the --checkpoint store (none yet: "
-                        "start fresh with a warning)")
+                        "start fresh with a warning). Resume covers "
+                        "fault schedules and hosted apps (journal "
+                        "replay)")
     p.add_argument("--until-complete", action="store_true",
                    help="run the simulation in a child process and "
                         "re-run it with --resume latest after a crash "
@@ -413,6 +415,13 @@ def main(argv=None) -> int:
                   f"p50={kk['p50_us']}us p99={kk['p99_us']}us")
     for rec in report.faults:
         print(f"fault applied: {rec}")
+    for hname, info in sorted(report.hosted.items()):
+        line = (f"hosted {hname}: exit_status="
+                f"{info.get('exit_status')} cause={info.get('cause')}")
+        if info.get("clean", False):
+            logger.message(report.sim_time_ns, "main", line)
+        else:
+            logger.warning(report.sim_time_ns, "main", line)
     print(f"done: {s['events']} events in {s['wall_seconds']:.2f}s wall "
           f"({s['events_per_sec']:.0f} ev/s, speedup x{s['speedup']:.2f}) "
           f"on {s['device']}")
@@ -422,6 +431,17 @@ def main(argv=None) -> int:
     if args.summary_json:
         print(json.dumps(s))
     return 0
+
+
+def port_fingerprint(cfg, scenario, runahead) -> str:
+    """The ledger fingerprint of a port run: the reference CLI's
+    arguments plus ``engine="torch"``, so the port's entries never share
+    a trajectory with the reference's in tools/perf_regress.py."""
+    from .obs import ledger as LG
+    return LG.fingerprint_of(cfg, seed=scenario.seed,
+                             stop_ns=int(scenario.stop_time),
+                             runahead=runahead or "", workers=0,
+                             engine=LG.ENGINE)
 
 
 def _perf_report(args, sim, scenario, report, tr, logger):
@@ -441,9 +461,7 @@ def _perf_report(args, sim, scenario, report, tr, logger):
              os.path.splitext(os.path.basename(args.config))[0])
     entry = LG.entry_from_report(
         label,
-        LG.fingerprint_of(sim.cfg, seed=scenario.seed,
-                          stop_ns=int(scenario.stop_time),
-                          runahead=args.runahead or "", workers=0),
+        port_fingerprint(sim.cfg, scenario, args.runahead),
         sim.device.type, report, att, cfg=sim.cfg)
     path = LG.append(entry, args.perf or None)
     if path:

@@ -108,11 +108,12 @@ def _ported_apps():
     from .ping import app_ping, app_ping_server
     from .socks import app_socks_client, app_socks_proxy
     from .tgen import app_tgen
+    from ..hosting.bridge import hosted_wake
     return {APP_PING: app_ping, APP_PING_SERVER: app_ping_server,
             APP_PHOLD: app_phold, APP_TGEN: app_tgen, APP_BULK: app_bulk,
             APP_BULK_SERVER: app_bulk_server, APP_GOSSIP: app_gossip,
             APP_SOCKS_CLIENT: app_socks_client,
-            APP_SOCKS_PROXY: app_socks_proxy}
+            APP_SOCKS_PROXY: app_socks_proxy, APP_HOSTED: hosted_wake}
 
 
 def dispatch(st, hp, sh, m, now, wake, present, proc=None):

@@ -8,7 +8,7 @@ tier instead maps each plugin id to a vectorized app kind plus eight
 int64 config words (HostParams.app_cfg). Arguments use `key=value` pairs; hostnames
 resolve through the virtual DNS.
 
-Ported plugins:
+Plugins:
   ping        peer=<host> port=N interval=<time> size=BYTES count=N
   pingserver  port=N
   phold       port=N mean=<time> size=BYTES init=N
@@ -19,6 +19,9 @@ Ported plugins:
               server-hi=ID size=BYTES count=N pause=<time> hops=1..3
   socksproxy  port=N server-port=N relay-lo=ID relay-hi=ID
   tgen        <behavior graphml path, or the graphml inline>
+  hosted:<name> <the app's own argument string> (hosting/: a HostedApp
+              registered under <name>, a C plugin, or ``shim`` for an
+              unmodified binary behind the LD_PRELOAD shim)
 """
 
 from __future__ import annotations
@@ -28,8 +31,8 @@ import os
 import numpy as np
 
 from ..core.simtime import parse_time
-from .base import (APP_BULK, APP_BULK_SERVER, APP_GOSSIP, APP_PHOLD,
-                   APP_PING, APP_PING_SERVER, APP_SOCKS_CLIENT,
+from .base import (APP_BULK, APP_BULK_SERVER, APP_GOSSIP, APP_HOSTED,
+                   APP_PHOLD, APP_PING, APP_PING_SERVER, APP_SOCKS_CLIENT,
                    APP_SOCKS_PROXY, APP_TGEN)
 
 
@@ -124,9 +127,10 @@ def compile_app(plugin: str, args: str, dns, num_hosts: int,
         cfg[4] = int(kv.get("relay-hi", 0))
         return APP_SOCKS_PROXY, cfg
     if plugin.startswith("hosted:"):
-        raise NotImplementedError(
-            "hosted applications are not ported to shadow_tpu_torch yet "
-            "(ROADMAP A9)")
+        # CPU-hosted app code (hosting/): the Simulation builds a
+        # HostingRuntime instance per such host; on the device it is
+        # only the wake-ring app kind
+        return APP_HOSTED, cfg
     if plugin == "tgen":
         if tgen_tables is None:
             raise ValueError("tgen requires a TgenTables compile context")

@@ -10,9 +10,13 @@ so a snapshot written by either package resumes in the other:
   plus the ``__fingerprint__``, ``__wstart__``, ``__wend__``,
   ``__windows__``, ``__fault_idx__``, ``__digest_records__``,
   ``__digest_chain__`` and ``__hosted_sha__`` stamps;
+- hosted runs add a ``<file>.hosted`` sidecar, the hosting runtime's
+  pickled snapshot (the port's own classes, so only the port reads
+  it), whose sha256 the npz stamps in ``__hosted_sha__``;
 - a save is atomic: the npz is written to ``<file>.tmp`` and fsynced,
-  its ``.sha256`` sidecar is written, then ``os.replace`` publishes the
-  npz and the ``<base>.latest`` pointer flips last;
+  its ``.sha256`` and ``.hosted`` sidecars are written, then
+  ``os.replace`` publishes the npz and the ``<base>.latest`` pointer
+  flips last;
 - the last ``keep`` snapshots are kept; a corrupt head falls back
   loudly to the newest older snapshot that verifies.
 
@@ -121,6 +125,7 @@ class Snapshot:
     fault_idx: int = -1         # fault schedule position (-1: none)
     digest_records: int = -1    # chain records written (-1: digest off)
     digest_chain: str = None    # running chain hash at that position
+    hosted_blob: bytes = None   # hosting.runtime snapshot sidecar
 
 
 class CheckpointStore:
@@ -134,11 +139,13 @@ class CheckpointStore:
 
     def save(self, hosts, wstart, wend, windows: int, fingerprint: str,
              fault_idx: int = -1, digest_records: int = -1,
-             digest_chain: str = None, narrow: bool = True) -> str:
+             digest_chain: str = None, hosted_blob: bytes = None,
+             narrow: bool = True) -> str:
         """Write one snapshot of `hosts` (a port Hosts; one device to
-        host copy per field), narrow at rest unless `narrow` is False.
-        The npz and its hash sidecar are durable before the npz is
-        published; the ``latest`` pointer flips last."""
+        host copy per field), narrow at rest unless `narrow` is False,
+        with `hosted_blob` as its ``.hosted`` sidecar. The npz and its
+        sidecars are durable before the npz is published; the
+        ``latest`` pointer flips last."""
         os.makedirs(os.path.dirname(os.path.abspath(self.base)),
                     exist_ok=True)
         arrs = {name: t.cpu().numpy() for name, t in named_leaves(hosts)}
@@ -146,6 +153,10 @@ class CheckpointStore:
             arrs = narrow_arrays(arrs)
         file = f"{self.base}.w{int(windows):010d}.npz"
         tmp = file + ".tmp"
+        hosted_name = hosted_sha = None
+        if hosted_blob is not None:
+            hosted_name = os.path.basename(file) + ".hosted"
+            hosted_sha = hashlib.sha256(hosted_blob).hexdigest()
         with open(tmp, "wb") as f:
             np.savez_compressed(
                 f,
@@ -158,7 +169,10 @@ class CheckpointStore:
                 __digest_records__=np.int64(digest_records),
                 __digest_chain__=np.frombuffer(
                     (digest_chain or "").encode(), dtype=np.uint8),
-                __hosted_sha__=np.frombuffer(b"", dtype=np.uint8),
+                # stamped inside the hash-verified npz, so _verify
+                # demands a matching .hosted sidecar
+                __hosted_sha__=np.frombuffer(
+                    (hosted_sha or "").encode(), dtype=np.uint8),
                 **{f"leaf{i}": arrs[name]
                    for i, name in enumerate(flatten_order(hosts))},
             )
@@ -166,6 +180,11 @@ class CheckpointStore:
             os.fsync(f.fileno())
         sha = _sha256_file(tmp)
         _write_atomic(file + ".sha256", (sha + "\n").encode())
+        if hosted_blob is not None:
+            _write_atomic(file + ".hosted", hosted_blob)
+        elif os.path.exists(file + ".hosted"):
+            # a stale sidecar of an earlier hosted run of this base
+            os.unlink(file + ".hosted")
         os.replace(tmp, file)
         _fsync_dir(os.path.dirname(os.path.abspath(file)))
         pointer = {
@@ -173,7 +192,7 @@ class CheckpointStore:
             "file": os.path.basename(file), "sha256": sha,
             "windows": int(windows), "wstart": int(wstart),
             "fingerprint": fingerprint,
-            "hosted": None, "hosted_sha256": None,
+            "hosted": hosted_name, "hosted_sha256": hosted_sha,
         }
         _write_atomic(self.pointer_path(),
                       (json.dumps(pointer, sort_keys=True) + "\n")
@@ -209,7 +228,7 @@ class CheckpointStore:
 
 def _verify(path: str) -> bool:
     """The npz against its hash sidecar (none: trusted), then the
-    hosted sidecar a reference snapshot may stamp."""
+    hosted sidecar the npz stamps."""
     sidecar = path + ".sha256"
     try:
         if os.path.exists(sidecar):
@@ -341,6 +360,10 @@ def load(path: str, hosts_template, fingerprint: str,
             f"fingerprint mismatch ({got} vs {fingerprint})\n")
     if narrow:
         arrs = widen_arrays(arrs)
+    hosted_blob = None
+    if os.path.exists(file + ".hosted"):
+        with open(file + ".hosted", "rb") as f:
+            hosted_blob = f.read()
     return Snapshot(hosts=arrs, wstart=wstart, wend=wend, windows=windows,
                     fault_idx=fault_idx, digest_records=digest_records,
-                    digest_chain=digest_chain)
+                    digest_chain=digest_chain, hosted_blob=hosted_blob)

@@ -8,16 +8,17 @@ that time on the host:
 
 - ``host_down``: every established TCP connection of the host sends one
   RST toward its peer (pushed straight into the peer's event queue,
-  arriving after the current path latency), and the host's queues,
+  arriving after the current path latency), a hosted child is
+  SIGKILLed through the hosting runtime, and the host's queues,
   outbox, NIC ring, app registers and socket liveness are cleared;
-- ``host_up``: process start events are pushed for every process slot;
+- ``host_up``: a hosted app is replaced by a fresh instance and process
+  start events are pushed for every process slot;
 - ``link_down``/``link_up``, ``loss`` and ``latency`` episodes rebuild
   the Shared latency/reliability tables from the pristine base plus the
   active episodes, so overlaps compose exactly.
 
 Everything is a function of (config, sim time, state), so same-seed
-runs are bit-identical, and equal to the reference's. Hosted processes
-are not ported: the injector has no hosting calls.
+runs are bit-identical, and equal to the reference's.
 """
 
 from __future__ import annotations
@@ -198,6 +199,7 @@ class FaultInjector:
         self.vertex = np.asarray(vertex)
         self.procs_of_host = procs_of_host  # hid -> [proc slots]
         self.host_names = list(host_names)
+        self.hosting = None     # the Simulation's HostingRuntime, if any
         self.links_down = {}         # (va, vb) sorted pair -> down count
         self.loss_eps = {}           # eid -> (va, vb, rate)
         self.lat_eps = {}            # eid -> (va, vb, extra_ns)
@@ -292,6 +294,9 @@ class FaultInjector:
             pkt[P.FLAGS] = P.PROTO_TCP | P.F_RST
             self._push_event(ed, peer, t + lat, EV_PKT, pkt)
             self.rsts += 1
+        if self.hosting is not None:
+            self.hosting.kill_host(
+                hid, cause=f"fault: host_down at t={t}ns", sim_ns=t)
         for f in ("eq_time", "eq_next"):
             ed[f][hid] = SIMTIME_MAX
         ed["eq_kind"][hid] = EV_NULL
@@ -311,7 +316,9 @@ class FaultInjector:
 
     def _host_up(self, ed: _HostsEditor, hid: int, t: int):
         """Re-arm the process start events (the boot sequence the
-        Simulation pushes at build)."""
+        Simulation pushes at build); a hosted app respawns fresh."""
+        if self.hosting is not None:
+            self.hosting.restart_host(hid)
         ed["app_node"][hid] = 0
         ed["app_r"][hid] = 0
         for p in self.procs_of_host.get(hid, ()):

@@ -42,8 +42,7 @@ from . import defs
 from .defs import EV_APP, WAKE_START
 from . import checkpoint as ckpt
 from .faults import CrashHook, FaultInjector, compile_faults
-from .state import (EngineConfig, HostParams, alloc_hosts, check_supported,
-                    make_shared)
+from .state import EngineConfig, HostParams, alloc_hosts, make_shared
 from .window import next_wakeup, run_windows
 
 
@@ -94,6 +93,9 @@ class SimReport:
     durability: dict = field(default_factory=dict)  # checkpoint saves
     #   (file, bytes, wall), the resume load wall, digest records,
     #   bytes hashed and record wall; RSTs radiated by host faults
+    hosted: dict = field(default_factory=dict)  # hosted-process exit
+    #   report: host name -> {"exit_status", "cause", "sim_ns", "clean",
+    #   ...} (hosting.runtime.exit_info)
 
     def total(self, stat: int) -> int:
         return int(self.stats[:, stat].sum())
@@ -189,6 +191,10 @@ class SimReport:
                 kinds.get("completion", {}).get("p99_us", 0) / 1e6)
         if self.faults:
             s["faults_applied"] = len(self.faults)
+        if self.hosted:
+            s["hosted_exits"] = len(self.hosted)
+            s["hosted_failures"] = sum(
+                1 for v in self.hosted.values() if not v.get("clean", False))
         from ..obs import metrics as MT
         if MT.ENABLED:
             MT.REGISTRY.publish("sim", s)
@@ -287,6 +293,7 @@ class Simulation:
         # every tgen process of the scenario compiles into one set of
         # shared tables
         tgen_tables = TgenTables()
+        hosted_specs = []   # (host, process slot, name, app, arguments)
         for idx, name, spec in scenario.expand_hosts():
             v = vertex[idx]
             bw_up[idx] = (spec.bandwidth_up or self.topo.v_bw_up_bytes[v]
@@ -317,6 +324,18 @@ class Simulation:
                 app_cfg[idx, p] = cfg_words
                 start_times[idx, p] = proc.start_time
                 has_app[idx, p] = True
+                if proc.plugin.startswith("hosted:"):
+                    # beside modeled processes is fine (the op replay
+                    # stamps the hosted slot); two hosted processes on
+                    # one host are not: wake records carry no process
+                    if any(i == idx for i, *_ in hosted_specs):
+                        raise ValueError(
+                            f"host {name!r} declares two hosted "
+                            "processes; at most one per host (modeled "
+                            "processes alongside are fine)")
+                    hosted_specs.append(
+                        (idx, p, name, proc.plugin[len("hosted:"):],
+                         proc.arguments))
         gsel = (app_kind == APP_GOSSIP) & has_app
         if gsel.any():
             n_draw = int(app_cfg[gsel, 0].max())
@@ -348,7 +367,32 @@ class Simulation:
             self.cfg = dataclasses.replace(
                 self.cfg, chunk_windows=chunk,
                 tracecap=chunk * (self.cfg.obcap + self.cfg.incap))
-        check_supported(self.cfg)
+
+        # CPU-hosted apps (hosting/): real app code bridged per window
+        self.hosting = None
+        if hosted_specs:
+            from ..hosting.api import lookup
+            from ..hosting.runtime import HostingRuntime
+            apps = {idx: lookup(app)(args)
+                    for idx, _, _, app, args in hosted_specs}
+            # zero-arg factories: a host_up restart respawns a FRESH
+            # instance (engine.faults)
+            factories = {idx: (lambda an=app, ar=args: lookup(an)(ar))
+                         for idx, _, _, app, args in hosted_specs}
+            self.hosting = HostingRuntime(
+                apps, {idx: n for idx, _, n, _, _ in hosted_specs},
+                self.dns, seed,
+                procs={idx: p for idx, p, _, _, _ in hosted_specs},
+                factories=factories)
+            if self.cfg.scap > 256:
+                raise ValueError(
+                    f"hosted apps require scap <= 256 (got "
+                    f"{self.cfg.scap}): pipe handles pack the slot "
+                    "into 8 bits")
+            if self.cfg.hostedcap < 32:
+                # every wake one window can bring (several accepts) must
+                # fit the ring
+                self.cfg = dataclasses.replace(self.cfg, hostedcap=32)
 
         # the fault schedule: compiled here so bad configs fail at
         # build, applied by the run loop at exact sim times
@@ -364,6 +408,7 @@ class Simulation:
             self.injector = FaultInjector(
                 events, self.topo.latency_ns, self.topo.reliability,
                 vertex, procs_of_host, names)
+            self.injector.hosting = self.hosting
 
         dev = self.device
 
@@ -499,6 +544,10 @@ class Simulation:
                                   digest_rewind, heartbeat_s, logger,
                                   pcap_dir, netscope, verbose)
         finally:
+            # no hosted child outlives the run, whatever ended it (a
+            # resume respawns and fast-forwards them from the journals)
+            if self.hosting is not None:
+                self.hosting.shutdown()
             if own_tr:
                 TR.finish()
             if own_mt:
@@ -555,14 +604,24 @@ class Simulation:
         store = (ckpt.CheckpointStore(checkpoint_path,
                                       keep=checkpoint_keep)
                  if checkpoint_path else None)
+        hosting = self.hosting
+        if store is not None and hosting is not None:
+            # checkpointed hosted runs journal every child's shim stream,
+            # so a resume can fast-forward respawned children (armed
+            # before any child spawns)
+            hosting.enable_journal()
         crash = CrashHook.from_env()
         if dg is not None:
             dg.write_manifest(DG.build_manifest(
                 self.scenario, cfg, self.seed, sh, self.host_names, dg,
                 self.device, checkpoint_path=checkpoint_path,
-                pcap=pcap_dir is not None, faults=inj is not None))
+                pcap=pcap_dir is not None, faults=inj is not None,
+                hosted=hosting is not None))
+        # the CPU tier runs between every window under hosted apps, and
         # records land on exact window boundaries
-        chunk = min(cfg.chunk_windows, dg.every) if dg else cfg.chunk_windows
+        chunk = 1 if hosting is not None else cfg.chunk_windows
+        if dg is not None:
+            chunk = min(chunk, dg.every)
         # the real stop time: a segment's Shared may carry the next
         # fault's time as its stop time instead
         stop_ns = int(sh.stop_time)
@@ -589,13 +648,24 @@ class Simulation:
                         "without this fault config — refusing to "
                         "resume into one")
                 sh = inj.fast_forward(snap.fault_idx, sh)
+            if hosting is not None:
+                if snap.hosted_blob is None:
+                    raise ValueError(
+                        "scenario hosts real processes but the snapshot "
+                        "has no hosted sidecar (<snapshot>.npz.hosted) — "
+                        "it was taken without hosted-app support")
+                # rebuild the hosted tier; respawned children fast-
+                # forward by journal replay
+                hosting.restore(snap.hosted_blob)
             self._sync()
             durability["load_s"] = _time.perf_counter() - t0
 
         def dg_record(kind, window, sim_ns):
             if TR.ENABLED:
                 d0 = TR.TRACER.now()
-            dg.record(st, H, window, sim_ns, kind)
+            dg.record(st, H, window, sim_ns, kind,
+                      hosted=(hosting.digest_state()
+                              if hosting is not None else None))
             if TR.ENABLED:
                 TR.TRACER.complete("digest.record", d0,
                                    args={"window": window, "kind": kind})
@@ -627,6 +697,8 @@ class Simulation:
                 fault_idx=inj.i if inj is not None else -1,
                 digest_records=len(dg.records) if dg is not None else -1,
                 digest_chain=dg.chain_hex if dg is not None else None,
+                hosted_blob=(hosting.snapshot() if hosting is not None
+                             else None),
                 narrow=narrow)
             durability["saves"].append(
                 {"file": path, "bytes": os.path.getsize(path),
@@ -669,6 +741,20 @@ class Simulation:
             total_windows += n
             passes += npass
             wm.sample()
+            if hosting is not None:
+                if TR.ENABLED:
+                    h0 = TR.TRACER.now()
+                hosting.step(st, hp, sh, min(ws, stop_ns))
+                dropped = int(st.hw_drop.sum())
+                if dropped:
+                    raise RuntimeError(
+                        f"{dropped} hosted-app wakes lost to wake-ring "
+                        "overflow; raise EngineConfig.hostedcap")
+                # the ops may have queued events before the window the
+                # engine computed: re-derive it
+                ws, we = window_after(next_wakeup(st))
+                if TR.ENABLED:
+                    TR.TRACER.complete("hosting.step", h0)
             now_ns = min(ws, stop_ns)
             if pcap is not None:
                 if TR.ENABLED:
@@ -685,6 +771,8 @@ class Simulation:
                 stats_np = st.stats.cpu().numpy()
                 tracker.maybe_heartbeat(
                     now_ns, stats_np, socks=socket_columns(st),
+                    hosted_rss=(hosting.child_rss()
+                                if hosting is not None else None),
                     dev_peak=wm.peak_bytes,
                     waste=waste_now(int(stats_np[:, defs.ST_EVENTS]
                                         .sum())))
@@ -775,6 +863,8 @@ class Simulation:
         stats = st.stats.cpu().numpy()
         self._sync()
         wall = _time.perf_counter() - wall0
+        if hosting is not None:
+            hosting.shutdown()
         peaks = st.cap_peaks.max(0).values.tolist()
         capacity = {"rows": [
             ("event_queue", cfg.qcap, int(peaks[0])),
@@ -804,7 +894,9 @@ class Simulation:
                            capacity=capacity, device=str(self.device),
                            passes=passes, memory=memory, network=network,
                            faults=list(inj.log) if inj is not None else [],
-                           durability=durability)
+                           durability=durability,
+                           hosted=(hosting.exit_info()
+                                   if hosting is not None else {}))
         if TR.ENABLED:
             TR.TRACER.complete("report.finalize", f0)
         if MT.ENABLED:

@@ -71,15 +71,6 @@ class EngineConfig:
     wide_state: int = 0
 
 
-def check_supported(cfg: EngineConfig):
-    """Raise NotImplementedError for engine features this port does not
-    run yet, naming the ROADMAP item that brings each."""
-    if cfg.hostedcap > 1:
-        raise NotImplementedError(
-            "not ported to shadow_tpu_torch yet: hosted applications "
-            "(hostedcap; ROADMAP A9)")
-
-
 # Digest sections (obs.digest): Hosts field prefix -> the named state
 # section a divergence report attributes to; fields matching no prefix
 # digest under "other".

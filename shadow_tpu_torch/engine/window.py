@@ -122,26 +122,38 @@ def _pass_flags(st, kind, app_kind, branch, pkt, t, cfg: EngineConfig,
                 blocked=None):
     """Which codes at least one row holds this pass -> (set of codes,
     set of TCP parts; empty when the config has no TCP; whether any row
-    is CPU-blocked, under the CPU model). The one host sync of the pass
-    (rows with no ready event hold EV_NULL)."""
+    is CPU-blocked, under the CPU model; whether a hosted wake ring is
+    near full, with hosted apps). The one host sync of the pass (rows
+    with no ready event hold EV_NULL)."""
     code = torch.where(kind == EV_APP, _app_code(app_kind, branch), kind)
     present = torch.zeros(_N_CODES, dtype=torch.int32, device=kind.device)
     present.scatter_(0, code.to(torch.int64), 1)
+    extra = []
     if cfg.uses_tcp:
-        feats = _tcp_features(st, kind, pkt, t).any(1).to(torch.int32)
-        present = torch.cat([present, feats])
+        extra.append(_tcp_features(st, kind, pkt, t).any(1))
     if blocked is not None:
-        present = torch.cat([present, blocked.any().to(torch.int32)[None]])
+        extra.append(blocked.any()[None])
+    if cfg.hostedcap > 1:
+        # the hosted pause: stop before any wake ring can overflow, so
+        # the CPU tier drains it (the window re-opens after the step);
+        # the floor keeps tiny rings from wedging the loop
+        cap = max(st.hw_time.shape[1] - 4, 1)
+        extra.append((st.hw_cnt.max() >= cap)[None])
+    if extra:
+        present = torch.cat([present] + [e.to(torch.int32) for e in extra])
     vals = present.tolist()
     codes = {i for i, v in enumerate(vals[:_N_CODES]) if v}
     parts = {n for n, v in zip(_TCP_PARTS, vals[_N_CODES:]) if v}
-    return codes, parts, blocked is not None and bool(vals[-1])
+    rest = vals[_N_CODES + (len(_TCP_PARTS) if cfg.uses_tcp else 0):]
+    any_blocked = blocked is not None and bool(rest.pop(0))
+    paused = cfg.hostedcap > 1 and bool(rest.pop(0))
+    return codes, parts, any_blocked, paused
 
 
 def step_all_hosts(st, hp, sh, wend: int, cfg: EngineConfig) -> bool:
     """One lockstep pass: every host whose earliest event lies below
     `wend` pops and runs it. Returns False, changing nothing, when no
-    host has one."""
+    host has one, or when a hosted wake ring is near full."""
     slot, t = equeue.q_min(st)
     ready = t < wend
     kind = torch.where(ready, rget(st.eq_kind, slot), EV_NULL)
@@ -161,10 +173,10 @@ def step_all_hosts(st, hp, sh, wend: int, cfg: EngineConfig) -> bool:
                    & (st.cpu_avail - t > hp.cpu_threshold))
         ready = ready & ~blocked
         pop_kind, kind = kind, torch.where(blocked, EV_NULL, kind)
-    flags, parts, any_blocked = _pass_flags(
+    flags, parts, any_blocked, paused = _pass_flags(
         st, kind, app_kind, branch_of(pkt), pkt, t, cfg, blocked)
     flags.discard(EV_NULL)
-    if not flags and not any_blocked:
+    if paused or (not flags and not any_blocked):
         return False
 
     if any_blocked:

@@ -181,9 +181,12 @@ class DigestRecorder:
 
     # --- recording ---
     def record(self, hosts, H: int, window: int, sim_ns: int,
-               kind: str) -> dict:
+               kind: str, hosted: dict = None) -> dict:
         """Hash `hosts` (a port Hosts; one copy to the host per field)
-        into one chain record."""
+        into one chain record. `hosted` is the hosting runtime's
+        op-stream digests (``HostingRuntime.digest_state``), in hosted
+        runs: the record carries it and its hash as section
+        ``hosted``."""
         import time
 
         from ..engine.checkpoint import named_leaves
@@ -198,6 +201,11 @@ class DigestRecorder:
         self.bytes_hashed += nbytes
         rec = {"window": int(window), "sim_ns": int(sim_ns),
                "kind": kind, "sections": sections}
+        if hosted is not None:
+            rec["hosted"] = hosted
+            h = hashlib.blake2b(json.dumps(hosted, sort_keys=True).encode(),
+                                digest_size=8)
+            rec["sections"] = dict(sections, hosted=h.hexdigest())
         if hosts_hex is not None:
             rec["hosts"] = hosts_hex
         self._chain = hashlib.blake2b(self._chain + _dump(rec).encode(),
@@ -222,7 +230,7 @@ class DigestRecorder:
 def build_manifest(scenario, cfg, seed: int, sh, host_names: list,
                    recorder: DigestRecorder, device,
                    checkpoint_path: str = None, pcap: bool = False,
-                   faults: bool = False) -> dict:
+                   faults: bool = False, hosted: bool = False) -> dict:
     """What decides that two chains are comparable: the reference's
     manifest keys, with the torch device and versions."""
     import platform as _platform
@@ -259,7 +267,7 @@ def build_manifest(scenario, cfg, seed: int, sh, host_names: list,
         # trace_ring section differs from a plain run's
         "pcap": bool(pcap),
         "faults": bool(faults),
-        "hosted": False,
+        "hosted": bool(hosted),
         "platform": str(device),
         "versions": {"python": _sys.version.split()[0],
                      "torch": torch.__version__,

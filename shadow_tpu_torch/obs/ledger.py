@@ -9,7 +9,10 @@ reference's. Keying rules:
   device type (``"cuda"`` or ``"cpu"``): a card number and a CPU
   number never form one trajectory;
 - ``fingerprint`` hashes the engine config and the scenario knobs, so
-  a deliberate config change starts a new trajectory;
+  a deliberate config change starts a new trajectory; the port's CLI
+  adds ``engine="torch"`` to the knobs, and every entry carries an
+  ``engine`` field, so a port run and a reference run of one scenario
+  never share a trajectory (the reference's entries have neither);
 - ``git_rev`` is recorded for audit, never used for grouping.
 
 One JSON object per line, append-only; a torn last line is skipped on
@@ -28,6 +31,7 @@ import time
 
 FORMAT = "shadow_tpu.perf.ledger"
 VERSION = 1
+ENGINE = "torch"    # this package's entries (the `engine` field and key)
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__))))
@@ -83,6 +87,7 @@ def make_entry(scenario: str, fingerprint: str, platform: str,
         "scenario": scenario,
         "fingerprint": fingerprint,
         "platform": platform,
+        "engine": ENGINE,
         "git_rev": git_rev(),
         "events": int(summary.get("events", 0)),
         "sim_seconds": summary.get("sim_seconds"),

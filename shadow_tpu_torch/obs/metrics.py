@@ -14,7 +14,8 @@ loop all publish into.
 lines); ``Registry.snapshot()`` is the final ``metrics.json``, shaped
 to diff against the ``BENCH_*.json`` rounds: ``sim`` holds
 ``SimReport.summary()``, ``net`` the network observatory, ``perf`` the
-phase attribution, ``memory`` the watermark.
+phase attribution, ``memory`` the watermark and, in hosted runs,
+``shim`` the LD_PRELOAD shim's per-op counts and latencies.
 
 Cheap when disabled: ``ENABLED`` is a module boolean the hot paths
 check, as in ``obs.trace``.
@@ -167,6 +168,21 @@ class Registry:
             sec = section(prefix)
             if sec:
                 out[name] = sec
+        # the LD_PRELOAD shim's per-op counts and handler latencies and
+        # its supervision counters (hosting.shim), in hosted runs
+        ops = {k[len("shim.op."):]: v for k, v in counters.items()
+               if k.startswith("shim.op.")}
+        superv = {k[len("shim."):]: v for k, v in counters.items()
+                  if k in ("shim.child_exits", "shim.supervisor_kills",
+                           "shim.violations")}
+        if ops or superv:
+            out["shim"] = {
+                "ops": ops,
+                "op_latency_us": {k[len("shim.op_us."):]: v
+                                  for k, v in hists.items()
+                                  if k.startswith("shim.op_us.")}}
+            if superv:
+                out["shim"]["supervision"] = superv
         return out
 
     def close(self):
@@ -218,3 +234,11 @@ def finish() -> Registry | None:
         reg.close()
     return reg
 
+
+
+def shim_op(op_name: str, dt_ns: int):
+    """One served shim request (hosting.shim): its count and its
+    handler latency in microseconds."""
+    r = REGISTRY
+    r.counter("shim.op." + op_name).inc()
+    r.histogram("shim.op_us." + op_name).observe(dt_ns / 1000.0)

@@ -25,6 +25,7 @@ from collections import defaultdict
 PHASE_OF = {
     "run.setup": "setup",
     "chunk": "window",
+    "hosting.step": "hosting",       # the hosted apps' CPU tier per window
     "pcap.drain": "pcap",
     "tracker.heartbeat": "tracker",
     "netscope.sample": "netscope",

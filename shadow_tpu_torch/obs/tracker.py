@@ -12,15 +12,16 @@ once per heartbeat.
   ``recv-bytes,send-bytes`` (out fill = written-but-unacked bytes, in
   fill = out-of-order bytes held);
 - ``[ram]``     per-host ``alloc,dealloc,total,sockets`` over the modeled
-  buffered bytes, with the memory watermark as a trailing ``dev=``;
+  buffered bytes, with a hosted child's resident set as ``rss=`` and
+  the memory watermark as a trailing ``dev=``;
 - ``[summary]`` the process's getrusage roll-up, with ``dev-peak-gib=``
   and ``waste=`` (the lockstep drain's wasted-lane share).
 
 Stats are observable only at chunk boundaries, so when several
 intervals elapse within one chunk the tracker emits ONE heartbeat at
 the last elapsed boundary, covering the whole span (its interval column
-carries the span). ``dev=`` and ``waste=`` depend on where the run
-executes; every other column of the [node], [socket] and [ram] lines
+carries the span). ``rss=``, ``dev=`` and ``waste=`` measure the
+process; every other column of the [node], [socket] and [ram] lines
 derives from simulation state alone.
 """
 
@@ -63,6 +64,7 @@ class Tracker:
 
     def maybe_heartbeat(self, sim_ns: int, stats: np.ndarray,
                         socks: dict | None = None,
+                        hosted_rss: dict | None = None,
                         dev_peak: int | None = None,
                         waste: float | None = None):
         """Called after each window chunk with current cumulative stats;
@@ -73,6 +75,11 @@ class Tracker:
         sk_proto, sk_rhost, sk_rport, sk_snd_una, sk_snd_end,
         sk_sndbuf, sk_rcv_nxt, sk_rcvbuf, ooo_held) enabling the
         [socket] and [ram] line families.
+
+        hosted_rss: optional host_id -> resident-set bytes of the
+        host's live hosted child (hosting.runtime.child_rss), a
+        trailing ``rss=`` column of its [ram] line: real process
+        memory beside the modeled buffer bytes.
 
         dev_peak: optional memory high-water bytes
         (obs.memscope.Watermark: the allocator peak on the card,
@@ -116,7 +123,8 @@ class Tracker:
                 f"{d[i, defs.ST_PKTS_DROP_BUF]},"
                 f"{d[i, defs.ST_XFER_DONE]}")
         if socks is not None:
-            self._heartbeat_sockets(t, span_s, socks, dev_peak)
+            self._heartbeat_sockets(t, span_s, socks, hosted_rss,
+                                    dev_peak)
 
         ru = resource.getrusage(resource.RUSAGE_SELF)
         tot = d.sum(axis=0)
@@ -151,6 +159,7 @@ class Tracker:
         self.next_ns += self.interval
 
     def _heartbeat_sockets(self, t: int, span_s: str, socks: dict,
+                           hosted_rss: dict | None = None,
                            dev_peak: int | None = None):
         used = socks["sk_used"]
         proto = socks["sk_proto"]
@@ -192,12 +201,16 @@ class Tracker:
                         f"{int(sent_bytes[i, s])}")
                 self._emit(f"[shadow-heartbeat] [socket] {t},{name},"
                            + "|".join(segs))
-            if ram_total[i] or ram_delta[i]:
+            rss = (hosted_rss or {}).get(i)
+            if ram_total[i] or ram_delta[i] or rss is not None:
                 alloc = max(int(ram_delta[i]), 0)
                 dealloc = max(-int(ram_delta[i]), 0)
-                # dev= is the memory watermark (obs.memscope): the
-                # measured high-water mark beside the modeled bytes
-                suffix = f",dev={int(dev_peak)}" if dev_peak else ""
+                # rss= is the hosted child's real resident set, dev= the
+                # memory watermark (obs.memscope): measured bytes beside
+                # the modeled ones
+                suffix = f",rss={int(rss)}" if rss is not None else ""
+                if dev_peak:
+                    suffix += f",dev={int(dev_peak)}"
                 self._emit(
                     f"[shadow-heartbeat] [ram] {t},{name},"
                     f"{alloc},{dealloc},{int(ram_total[i])},"

@@ -34,6 +34,7 @@ from shadow_tpu.obs import ledger as RL
 
 from shadow_tpu_torch.__main__ import build_test_scenario
 from shadow_tpu_torch.__main__ import main as port_cli
+from shadow_tpu_torch.__main__ import port_fingerprint
 from shadow_tpu_torch.engine.sim import Simulation
 from shadow_tpu_torch.engine.state import EngineConfig
 from shadow_tpu_torch.obs import ledger as LG
@@ -359,6 +360,28 @@ REF_TEST_COUNTS = {"hosts": 21, "events": 3021, "windows": 25,
                    "pkts_sent": 1160, "pkts_recv": 1160, "drop_net": 0,
                    "drop_q": 0, "bytes_recv": 645120, "retransmits": 0,
                    "transfers_done": 35, "transfers_aborted": 0}
+
+
+def test_port_ledger_key_differs_from_reference():
+    """A port entry and a reference entry of one scenario and config
+    never share a trajectory: the port's CLI adds engine="torch" to the
+    reference CLI's fingerprint arguments, and its entries carry the
+    engine field (no whole run: the keys alone)."""
+    from shadow_tpu.__main__ import build_test_scenario as ref_build
+    scen = build_test_scenario(20)
+    cfg, rcfg = EngineConfig(num_hosts=21), RefEngineConfig(num_hosts=21)
+    args = dict(seed=scen.seed, stop_ns=int(ref_build(20).stop_time),
+                runahead="", workers=0)
+    ref_fp = RL.fingerprint_of(rcfg, **args)
+    assert LG.fingerprint_of(cfg, **args) == ref_fp
+    port_fp = port_fingerprint(cfg, scen, None)
+    assert port_fp != ref_fp
+    assert port_fp == LG.fingerprint_of(cfg, engine="torch", **args)
+    s = {"events": 10, "wall_seconds": 1.0, "events_per_sec": 10.0}
+    port = LG.make_entry("test", port_fp, "cpu", s)
+    ref = RL.make_entry("test", ref_fp, "cpu", s)
+    assert port["engine"] == "torch" and "engine" not in ref
+    assert LG.key_of(port) != RL.key_of(ref)
 
 
 def test_cli_test_scenario():

@@ -234,21 +234,32 @@ def test_phase_clock_sees_every_window():
 
 def test_unported_features_raise():
     """Engine features of later slices raise NotImplementedError naming
-    their ROADMAP item; the CPU model, fault schedules, netscope and the
-    packet-trace ring build."""
+    their ROADMAP item. None is left: the CPU model, fault schedules,
+    netscope, the packet-trace ring and hosted apps (a hostedcap=4
+    config builds a (4, 4) wake ring) all build, and every
+    NotImplementedError raised in the port's sources names one."""
+    import re
     from shadow_tpu_torch.core.config import FaultSpec
     scen = phold_scenario(n=4, stop=2)
     scen.faults = [FaultSpec(kind="host_down", at=10**9, host="node1")]
     assert Simulation(scen, device="cpu").injector is not None
+    sims = {}
     for knobs in (dict(cpu_model=True), dict(netscope=True),
-                  dict(tracecap=8)):
+                  dict(tracecap=8), dict(hostedcap=4)):
         sim = Simulation(phold_scenario(n=4, stop=2), device="cpu",
                          engine_cfg=EngineConfig(num_hosts=4, **knobs))
         assert all(getattr(sim.cfg, k) == v for k, v in knobs.items())
-    assert sim.hosts.tr_time.shape == (4, 8)
-    with pytest.raises(NotImplementedError, match="A9"):
-        Simulation(phold_scenario(n=4, stop=2), device="cpu",
-                   engine_cfg=EngineConfig(num_hosts=4, hostedcap=4))
+        sims.update({k: sim for k in knobs})
+    assert sims["tracecap"].hosts.tr_time.shape == (4, 8)
+    assert sims["hostedcap"].hosts.hw_time.shape == (4, 4)
+    assert sims["hostedcap"].hosting is None
+    raised = []
+    for path in glob.glob(os.path.join(ROOT, "shadow_tpu_torch", "**",
+                                       "*.py"), recursive=True):
+        text = open(path).read()
+        raised += re.findall(r"raise NotImplementedError\((.*?)\)\n",
+                             text, re.S)
+    assert all(re.search(r"ROADMAP [A-C]\d+", m) for m in raised), raised
 
 
 def test_cuda_default_needs_a_card():
