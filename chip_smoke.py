@@ -37,6 +37,23 @@ The timed phases run first, each alone on the card and the host:
               through Simulation: GETs and PUTs complete, no walk branch
               is lost, no socket table or event queue overflows; launches
               per pass and the busy share from a span of its passes.
+22. passcope — phold-4096 to 2 sim-s (one sim-s of traffic after its
+              1 s start) in 16-window chunks, once plain and once with
+              ``run(passcope=DIR)`` tracing the first chunk: equal stats,
+              windows and passes, and >= 90% of the card's kernel time
+              attributed to pass labels; prints the label table (kernel
+              ms, host issue ms and sync ms per label, and runtime_ms,
+              the host's waits for the card).
+23. census  — no run of its own: socks10k's ``SimReport.memory``
+              census (state bytes, per host, hot) beside the allocator's
+              peak (``torch.cuda.max_memory_allocated``), which must
+              hold the state.
+24. batch-phold-4096x4 — four lanes of phold-4096 (bench.py's shape,
+              16,384 rows), seeds 1-4, 5 sim-s, through
+              ``serving.batch.run_batch``: each lane's digest chain,
+              stats, windows and passes equal its seed's run alone on
+              the card; prints the batch wall, the summed events/s, the
+              stacked passes and the four walls alone.
 The checks that time nothing run after them, beside phases 7, 17 and
 20, each in a process of its own on the same card:
 
@@ -74,6 +91,12 @@ The checks that time nothing run after them, beside phases 7, 17 and
               (the CPU halves in a child process): equal stats, Hosts
               fields, netscope JSONL bytes, pcap bytes and heartbeat
               lines (apart from dev=, waste= and the getrusage columns).
+25. fleet    — ``python -m shadow_tpu_torch fleet run --workers 2`` on
+              the card over two port runs of an 8-host phold and a
+              two-member batch group of it (``fleet submit --batch
+              --seeds 1,2``): the queue drains with no crash and every
+              digest chain equals its run alone on the card. Run in a
+              process of its own beside these checks.
 21. hosted-gpu=cpu — tests/test_torch_hosting.py's shapes (a hosted UDP
               pinger and TCP putter, hosted beside modeled on one host,
               the loopback self-channel, a pipe, the cping C plugin) on
@@ -279,6 +302,12 @@ def profile_cell(name, mk, cfg):
 # socks10k stop time (sim-s; clients start at 2 s): the full 10 sim-s
 # took 458.6 s of drain on the card, so the script runs the 5 sim-s floor
 SOCKS_STOP_S = 5
+# passcope: phold-4096 to 2 sim-s (one sim-s of traffic after its 1 s
+# start, 40 windows), tracing its first chunk of 16 windows: the
+# profiler multiplies the wall of what it traces (PERF.md §6)
+PASSCOPE_STOP_S = 2
+PASSCOPE_WINDOWS = 16
+BATCH_STOP_S = 5
 
 
 def poi_topology(loss=0.0, bw_down=20480, bw_up=10240, latency_ms=20.0):
@@ -1010,11 +1039,15 @@ def main():
         ping_phase(cli)
     if want("phold-4096"):
         phold_phase()
+    if want("passcope"):
+        passcope_phase()
+    if want("batch-phold-4096x4"):
+        batch_phase()
     plain_gossip = gossip_phase() if want("gossip-100k") else None
     if want("gossip-100k-telemetry"):
         gossip_telemetry_phase(plain_gossip)
     if want("socks10k"):
-        socks10k_phase(defs)
+        census_phase(socks10k_phase(defs))
     if want("tgen-1k"):
         tgen1k_phase(defs)
     if only and "tgen-1k-cpu" in only:
@@ -1027,6 +1060,7 @@ def main():
     faults = (Child(_socks10k_faults_child, "socks10k-faults")
               if want("socks10k-faults") else None)
     tgen_cli = CliTgen() if want("cli-tgen") else None
+    fleet = Child(_fleet_child, "fleet") if want("fleet") else None
     shim_gpu = shim_cpu = None
     if want("hosted-shim-64"):
         shim_gpu = Child(_shim64_gpu_child, "hosted-shim-64")
@@ -1060,10 +1094,12 @@ def main():
             err, _ = faults.result()
             if err:
                 fail(f"socks10k-faults: {err}")
+        if fleet:
+            fleet_finish(fleet)
         if shim_gpu:
             shim64_compare(shim_gpu, shim_cpu, canonicalize_state)
     finally:
-        for child in (tgen_cli, faults, shim_gpu, shim_cpu):
+        for child in (tgen_cli, faults, fleet, shim_gpu, shim_cpu):
             if child:
                 child.stop()
 
@@ -1073,6 +1109,211 @@ def main():
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def passcope_phase(device="cuda", n=4096):
+    """22. passcope on phold-4096 to PASSCOPE_STOP_S: a plain run, then
+    a run tracing its first PASSCOPE_WINDOWS windows (one chunk); equal
+    results and >= 90% attributed."""
+    import dataclasses
+    import tempfile
+
+    from shadow_tpu_torch.engine.sim import Simulation
+    from shadow_tpu_torch.obs import passcope as PC
+    cfg = dataclasses.replace(phold_cfg(n), chunk_windows=PASSCOPE_WINDOWS)
+    t0 = time.perf_counter()
+    _, plain = run(phold_scenario(n, PASSCOPE_STOP_S), cfg, device)
+    t1 = time.perf_counter()
+    os.environ["SHADOW_TPU_PASSCOPE_CHUNKS"] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            sim = Simulation(phold_scenario(n, PASSCOPE_STOP_S),
+                             engine_cfg=cfg, device=device)
+            rep = sim.run(passcope=d)
+    finally:
+        del os.environ["SHADOW_TPU_PASSCOPE_CHUNKS"]
+    t2 = time.perf_counter()
+    dev = rep.device_phases
+    if not dev.get("available"):
+        fail(f"passcope: no pass table: {dev}")
+    if (not (rep.stats == plain.stats).all()
+            or (rep.windows, rep.passes) != (plain.windows, plain.passes)):
+        fail("passcope: the profiled run's results differ from the plain "
+             "run's")
+    print(PC.format_report(dev, rep.occupancy), flush=True)
+    if not dev["ok"] or dev["attributed_frac"] < PC.MIN_ATTRIBUTED:
+        fail(f"passcope: only {dev['attributed_frac']} of the "
+             f"{dev['device']} time attributed: {dev['residual_top']}")
+    table = {k: [v["ms"], v["host_ms"], v["sync_ms"]]
+             for k, v in dev["phases"].items()}
+    phase("passcope", time.perf_counter() - t0,
+          plain_wall_s=round(t1 - t0, 3), passcope_wall_s=round(t2 - t1, 3),
+          run_wall_s=round(rep.wall_seconds, 3), windows=rep.windows,
+          passes=rep.passes, events=rep.events,
+          chunks_traced=dev["chunks_traced"], total_ms=dev["total_ms"],
+          attributed_frac=dev["attributed_frac"],
+          runtime_ms=dev["runtime_ms"],
+          label_ms_host_sync=json.dumps(table, separators=(",", ":")))
+
+
+def census_phase(socks):
+    """23. the state census of socks10k's run beside the allocator's
+    peak."""
+    if socks is None:
+        return
+    sim, rep = socks
+    mem = rep.memory
+    c = mem["census"]
+    live = sum(t.numel() * t.element_size()
+               for t in vars(sim.final_hosts).values())
+    if c["hosts"]["bytes"] != live:
+        fail(f"census: Hosts {c['hosts']['bytes']} bytes, tensors {live}")
+    peak = torch.cuda.max_memory_allocated()
+    if not c["bytes"] <= mem["peak_bytes"] <= peak:
+        fail(f"census: state {c['bytes']} bytes, run peak "
+             f"{mem['peak_bytes']}, allocator peak {peak}")
+    phase("census", 0.0, hosts=c["H"], state_bytes=c["bytes"],
+          state_bytes_per_host=c["per_host"],
+          hosts_bytes=c["hosts"]["bytes"], hp_bytes=c["hp"]["bytes"],
+          shared_bytes=c["shared"]["bytes"],
+          hot_state_bytes=mem["hot_state_bytes"],
+          run_peak_bytes=mem["peak_bytes"], max_memory_allocated=peak,
+          sections=json.dumps(mem["sections"], separators=(",", ":")))
+
+
+def batch_phase(device="cuda", n=4096, seeds=(1, 2, 3, 4)):
+    """24. batch-phold-4096x4: each lane equals its seed's run alone."""
+    import tempfile
+
+    from shadow_tpu_torch.engine.sim import Simulation
+    from shadow_tpu_torch.serving.batch import run_batch
+    t0 = time.perf_counter()
+
+    def scen(seed):
+        sc = phold_scenario(n, BATCH_STOP_S)
+        sc.seed = seed
+        return sc
+
+    with tempfile.TemporaryDirectory() as d:
+        alone = {}
+        for sd in seeds:
+            sim = Simulation(scen(sd), engine_cfg=phold_cfg(n),
+                             device=device)
+            alone[sd] = sim.run(digest=os.path.join(d, f"one{sd}.jsonl"))
+        t1 = time.perf_counter()
+        sims = [Simulation(scen(sd), engine_cfg=phold_cfg(n),
+                           device=device) for sd in seeds]
+        reps = run_batch(sims, digest_paths=[
+            os.path.join(d, f"lane{sd}.jsonl") for sd in seeds])
+        t2 = time.perf_counter()
+        for sd, rep in zip(seeds, reps):
+            one = alone[sd]
+            with open(os.path.join(d, f"one{sd}.jsonl"), "rb") as f:
+                want = f.read()
+            with open(os.path.join(d, f"lane{sd}.jsonl"), "rb") as f:
+                got = f.read()
+            if got != want or not want:
+                fail(f"batch-phold-{n}x{len(seeds)}: lane of seed {sd}: "
+                     "digest chain differs from its run alone")
+            if (not (rep.stats == one.stats).all()
+                    or (rep.windows, rep.passes)
+                    != (one.windows, one.passes)):
+                fail(f"batch-phold-{n}x{len(seeds)}: lane of seed {sd}: "
+                     "stats, windows or passes differ from its run alone")
+    events = sum(r.events for r in reps)
+    wall = reps[0].wall_seconds
+    walls = [round(alone[sd].wall_seconds, 3) for sd in seeds]
+    phase(f"batch-phold-{n}x{len(seeds)}", time.perf_counter() - t0,
+          batch_wall_s=round(wall, 3),
+          events=events, events_per_s=round(events / wall, 1),
+          stacked_passes=reps[0].batch["stacked_passes"],
+          lane_passes=[r.passes for r in reps],
+          lane_windows=[r.windows for r in reps],
+          alone_wall_s=json.dumps(walls),
+          alone_wall_sum_s=round(sum(walls), 3),
+          alone_events_per_s=json.dumps(
+              [round(alone[sd].events_per_sec, 1) for sd in seeds]),
+          alone_phase_s=round(t1 - t0, 3),
+          batch_phase_s=round(t2 - t1, 3))
+
+
+def fleet_run(device="cuda"):
+    """25. the fleet on `device`: two runs and a two-member batch group
+    under ``fleet run --workers 2``, each chain against its run alone
+    -> a dict of figures (raises on a failed check)."""
+    import tempfile
+
+    from shadow_tpu_torch.__main__ import main as cli
+    from shadow_tpu_torch.fleet import cli as FC
+    from shadow_tpu_torch.fleet.queue import Queue
+    caps = "qcap=16,scap=4,obcap=8,incap=16,chunk=8"
+    with tempfile.TemporaryDirectory() as d:
+        xml = os.path.join(d, "phold.xml")
+        with open(xml, "w") as f:
+            f.write(phold_scenario(8, 6, bw_kib=10240,
+                                   mean="300ms").to_xml())
+        qdir = os.path.join(d, "q")
+        alone = {"m7": ["--seed", "7", "--engine-caps", caps],
+                 "m8": ["--seed", "8", "--engine-caps", caps],
+                 "phold-s1": ["--seed", "1"], "phold-s2": ["--seed", "2"]}
+        with contextlib.redirect_stdout(io.StringIO()):
+            for rid in ("m7", "m8"):
+                if FC.main(["submit", qdir, xml, "--id", rid, "--device",
+                            device, "--digest-every", "8", "--"]
+                           + alone[rid]):
+                    raise RuntimeError(f"fleet submit {rid} failed")
+            if FC.main(["submit", qdir, xml, "--batch", "g", "--seeds",
+                        "1,2", "--device", device, "--digest-every", "8"]):
+                raise RuntimeError("fleet submit --batch failed")
+        env = dict(os.environ, PYTHONPATH=HERE)
+        env.pop(T0_ENV, None)
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "shadow_tpu_torch", "fleet", "run",
+             qdir, "--workers", "2", "--backoff", "0.1"], cwd=HERE,
+            env=env, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise RuntimeError(f"fleet run rc={r.returncode}: "
+                               f"{(r.stdout + r.stderr)[-2000:]}")
+        q = Queue(qdir)
+        states = q.fold()
+        bad = {k: (v.state, v.crashes) for k, v in states.items()
+               if v.state != "done" or v.crashes}
+        if set(states) != set(alone) or bad:
+            raise RuntimeError(f"fleet: runs not all done cleanly: {bad}")
+        for rid, args in alone.items():
+            dg = os.path.join(d, f"alone-{rid}.jsonl")
+            with contextlib.redirect_stdout(io.StringIO()):
+                if cli([xml, "--device", device, "--digest", dg,
+                        "--digest-every", "8"] + args):
+                    raise RuntimeError(f"fleet: {rid} alone failed")
+            with open(dg, "rb") as f1, open(q.digest_path(rid), "rb") as f2:
+                if f1.read() != f2.read():
+                    raise RuntimeError(f"fleet: {rid}'s chain differs "
+                                       "from its run alone")
+        return {"fleet_run_wall_s": round(wall, 3), "runs": len(states),
+                "chains_equal": len(alone)}
+
+
+def _fleet_child(conn):
+    """A child process: phase 25 -> (None, figures), or the failure."""
+    t0 = time.perf_counter()
+    try:
+        out = fleet_run()
+        out["wall"] = time.perf_counter() - t0
+        conn.send((None, out))
+    except BaseException as e:
+        conn.send((f"{type(e).__name__}: {e}", None))
+        raise
+
+
+def fleet_finish(child):
+    (err, out), waited = child.result()
+    if err:
+        fail(f"fleet: {err}")
+    wall = out.pop("wall")
+    phase("fleet", wall, waited_s=round(waited, 3), **out)
 
 
 def log1p_phase(R):
@@ -1241,6 +1482,7 @@ def socks10k_phase(defs):
           chain_short_sum=int(chain_short.sum()),
           chain_short_hosts=int((chain_short > 0).sum()),
           drop_net=s["drop_net"], defer_fanin=s["defer_fanin"])
+    return sim, rep
 
 
 def tcp_gpu_cpu_phase(canonicalize_state):

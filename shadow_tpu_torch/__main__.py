@@ -15,6 +15,9 @@
         [--checkpoint PATH --checkpoint-every SEC [--checkpoint-keep N]]
         [--resume PATH|latest]
         [--until-complete [--max-retries N] [--retry-backoff SEC]]
+        [--passcope [DIR]] [--shape-fingerprint]
+    python -m shadow_tpu_torch batch CONFIG... [--seeds S1,S2,...] ...
+    python -m shadow_tpu_torch fleet submit|run|status QUEUE ...
 
 Runs on the card unless ``--device cpu`` is given. Prints the applied
 faults, each hosted process's exit (``hosted <host>: exit_status=...``,
@@ -32,6 +35,13 @@ given; ``SHADOW_TPU_LEDGER=off`` disables appends). ``--until-complete``
 re-runs ``python -m shadow_tpu_torch`` in a child process with
 ``--resume latest`` after each crash, and SIGTERM under ``--checkpoint``
 saves a snapshot at the next chunk boundary and exits 75.
+``--passcope`` profiles the first chunks and prints the per-pass table
+(obs.passcope) with the occupancy block; ``--shape-fingerprint`` prints
+the scenario's shape identity as one JSON line and exits without
+running. ``batch`` runs same-shape scenarios as lanes of one program
+(serving.batch), ``fleet`` queues and supervises sweeps (fleet.cli).
+``--aot-cache`` and ``--prewarm`` are refused (exit 2): eager torch has
+no executable to cache.
 """
 
 from __future__ import annotations
@@ -110,6 +120,14 @@ def build_test_scenario(n_clients: int = 1000, stop_s: int = 60):
 
 
 def main(argv=None) -> int:
+    argv_in = list(argv) if argv is not None else sys.argv[1:]
+    if argv_in[:1] == ["fleet"]:
+        from .fleet.cli import main as fleet_main
+        return fleet_main(argv_in[1:])
+    if argv_in[:1] == ["batch"]:
+        from .serving.batch import main as batch_main
+        return batch_main(argv_in[1:])
+    from .serving import NO_EXECUTABLE_CACHE
     p = argparse.ArgumentParser(prog="python -m shadow_tpu_torch",
                                 description=__doc__.splitlines()[0])
     p.add_argument("config", nargs="?", help="shadow.config.xml path")
@@ -224,6 +242,23 @@ def main(argv=None) -> int:
                         "start fresh with a warning). Resume covers "
                         "fault schedules and hosted apps (journal "
                         "replay)")
+    p.add_argument("--passcope", nargs="?", const="", default=None,
+                   metavar="DIR",
+                   help="pass-time observatory (obs.passcope): profile "
+                        "the first chunks into DIR (default "
+                        "passcope_trace; SHADOW_TPU_PASSCOPE also "
+                        "enables it) and print the per-pass table "
+                        "(device ms, host issue and sync ms per label) "
+                        "with the occupancy block after the run")
+    p.add_argument("--shape-fingerprint", action="store_true",
+                   help="print the scenario's shape identity "
+                        "(fingerprint of the resolved EngineConfig and "
+                        "the chunk) as one JSON line and exit without "
+                        "running")
+    p.add_argument("--aot-cache", default=None, metavar="DIR",
+                   help="refused: " + NO_EXECUTABLE_CACHE)
+    p.add_argument("--prewarm", action="store_true",
+                   help="refused: " + NO_EXECUTABLE_CACHE)
     p.add_argument("--until-complete", action="store_true",
                    help="run the simulation in a child process and "
                         "re-run it with --resume latest after a crash "
@@ -238,6 +273,9 @@ def main(argv=None) -> int:
                         "doubling to a 60 s cap")
     args = p.parse_args(argv)
 
+    if args.aot_cache is not None or args.prewarm:
+        p.error(f"{'--aot-cache' if args.aot_cache is not None else '--prewarm'}"
+                f": {NO_EXECUTABLE_CACHE}")
     if args.checkpoint and not args.checkpoint_every:
         p.error("--checkpoint requires --checkpoint-every SEC")
     if args.until_complete:
@@ -371,6 +409,19 @@ def main(argv=None) -> int:
     qd = {"fifo": 0, "rr": 1}[args.interface_qdisc]
     if qd != sim.cfg.qdisc:
         sim.cfg = dataclasses.replace(sim.cfg, qdisc=qd)
+    if args.shape_fingerprint:
+        # every knob above is applied: the identity of what this exact
+        # command line would run
+        from .obs import digest as DG
+        from .obs import ledger as LG
+        chunk = sim.effective_chunk(
+            (args.digest_every or DG.DEFAULT_EVERY) if args.digest else 0)
+        fp = LG.fingerprint_of(sim.cfg, engine=LG.ENGINE)
+        print(json.dumps({"shape_fingerprint": fp,
+                          "shape": f"c{chunk}.w0.{fp}", "chunk": chunk,
+                          "hosts": scenario.total_hosts(),
+                          "workers": 0}))
+        return 0
     # --perf collects the spans itself (in memory without --trace) and
     # reads them after the run
     own_perf_tr = False
@@ -397,7 +448,7 @@ def main(argv=None) -> int:
                          logger=logger, pcap_dir=args.pcap_dir,
                          trace=None if own_perf_tr else args.trace,
                          metrics=args.metrics, netscope=args.netscope,
-                         verbose=args.verbose)
+                         passcope=args.passcope, verbose=args.verbose)
     except Preempted as pe:
         from .engine.supervisor import EXIT_PREEMPTED
         sys.stderr.write(f"shadow_tpu_torch: preempted: {pe} — resume "
@@ -409,6 +460,10 @@ def main(argv=None) -> int:
     s = report.summary()
     if own_perf_tr:
         _perf_report(args, sim, scenario, report, tr, logger)
+    if args.passcope is not None or report.device_phases:
+        from .obs import passcope as PC
+        print(PC.format_report(report.device_phases or None,
+                               report.occupancy or None))
     for kind, kk in report.network.get("kinds", {}).items():
         if kk["count"]:
             print(f"netscope {kind}: n={kk['count']} "

@@ -346,11 +346,25 @@ _I64 = torch.int64
 _NO_WALK, _ENTER, _SUCC = 0, 1, 2
 
 
+def _rows(sh, name):
+    """Rows of one scenario's copy of the tgen table `name`."""
+    return getattr(sh, name).shape[0] // sh.lanes
+
+
+def _tab(sh, name, i):
+    """Table `name` at the per-row index `i`, already clamped into one
+    scenario's copy; stacked lanes (engine.state.LaneShared) read their
+    own lane's copy."""
+    if sh.lanes == 1:
+        return getattr(sh, name)[i]
+    return getattr(sh, name)[i + sh.tgen_base[name]]
+
+
 def _node(sh, cur):
     """[H, NODE_COLS] node rows of the per-row node index `cur`
     (clamped into the table, as the reference does)."""
-    n = sh.tgen_nodes.shape[0]
-    return sh.tgen_nodes[cur.to(_I64).clamp(0, n - 1)]
+    n = _rows(sh, "tgen_nodes")
+    return _tab(sh, "tgen_nodes", cur.to(_I64).clamp(0, n - 1))
 
 
 def _index(arr, slot):
@@ -388,8 +402,8 @@ def _exec_node(st, hp, sh, now, ex, cur, nd, kinds):
         pcnt = nd[:, COL_PCNT].clamp(min=1)
         u = draw(st, hp, mk)
         pick = _pick(u, nd[:, COL_POFF], pcnt).clamp(
-            0, sh.tgen_peers.shape[0] - 1)
-        peer = sh.tgen_peers[pick]
+            0, _rows(sh, "tgen_peers") - 1)
+        peer = _tab(sh, "tgen_peers", pick)
         size = nd[:, COL_B].clamp(max=TAG_SIZE_MASK)
         tag = (size | torch.where(nd[:, COL_A] == 1, TAG_PUT, 0)).to(_I32)
         slot, ok = tcp_connect(st, hp, sh, mk, now, dst_host=peer[:, 0],
@@ -408,7 +422,8 @@ def _exec_node(st, hp, sh, now, ex, cur, nd, kinds):
         drawn = fixed < 0
         u = draw(st, hp, mk & drawn)
         at = _pick(u, nd[:, COL_B], nd[:, COL_C].clamp(min=1))
-        pool = sh.tgen_pool[at.clamp(0, sh.tgen_pool.shape[0] - 1)]
+        pool = _tab(sh, "tgen_pool",
+                    at.clamp(0, _rows(sh, "tgen_pool") - 1))
         t = torch.where(drawn, pool, fixed)
         wait = mk & (t > 0)
         timer(st, wait, now + t, aux=cur)
@@ -444,10 +459,10 @@ def _push_succs(st, sh, stack, sp, m, cur, n_edges: int):
     eoff = nd[:, COL_EOFF].to(_I32)
     ecnt = nd[:, COL_ECNT].to(_I32)
     at = torch.arange(STACK_CAP, device=sp.device)
-    last = sh.tgen_edges.shape[0] - 1
+    last = _rows(sh, "tgen_edges") - 1
     for j in range(n_edges):
         mj = m & (j < ecnt)
-        tgt = sh.tgen_edges[(eoff + j).clamp(0, last).to(_I64)]
+        tgt = _tab(sh, "tgen_edges", (eoff + j).clamp(0, last).to(_I64))
         can = sp < STACK_CAP
         stack = torch.where(mj.unsqueeze(1) & (at == sp.unsqueeze(1)),
                             tgt.unsqueeze(1), stack)
@@ -473,7 +488,7 @@ def _walk(st, hp, sh, now, mode, node):
     stack[:, 0] = torch.where(mode != _NO_WALK, node, -1)
     sp = (mode != _NO_WALK).to(_I32)
     succ = mode == _SUCC
-    cap = 4 * sh.tgen_nodes.shape[0] + 4 * STACK_CAP
+    cap = 4 * _rows(sh, "tgen_nodes") + 4 * STACK_CAP
     lim = cap + succ.to(_I32)
     g = 0
     while True:

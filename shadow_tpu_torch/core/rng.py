@@ -49,9 +49,19 @@ def _mix32(x):
     return x ^ (x >> 16)
 
 
+def stream_base(seed: int, domain: int) -> int:
+    """The (seed, domain) half of a stream id, as a python int."""
+    return (((seed & _M32) * _GOLDEN) & _M32) ^ ((domain * 0x85EBCA6B) & _M32)
+
+
 def stream_of(seed: int, domain: int, ident):
     """u32 stream id (int64 tensor) for (seed, domain, per-entity id)."""
-    base = (((seed & _M32) * _GOLDEN) & _M32) ^ ((domain * 0x85EBCA6B) & _M32)
+    return stream_from(stream_base(seed, domain), ident)
+
+
+def stream_from(base, ident):
+    """``stream_of`` from its base: an int, or an int64 tensor holding
+    one base per entry of `ident` (stacked lanes, each its own seed)."""
     return _mix32(_mul32(_u32(ident), 0xC2B2AE35) ^ base)
 
 

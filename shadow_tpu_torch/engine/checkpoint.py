@@ -31,6 +31,7 @@ import glob
 import hashlib
 import json
 import os
+import re
 import sys
 import zipfile
 import zlib
@@ -82,6 +83,27 @@ def base_of(path: str) -> str:
     """``run/ck.npz`` and ``run/ck`` both name the store whose
     snapshots are ``run/ck.w<windows>.npz``."""
     return path[:-4] if path.endswith(".npz") else path
+
+
+# run ids usable as a store namespace: path-safe, no separators, no
+# traversal (the fleet queue's run ids)
+_RUN_ID_OK = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._-]{0,99}$")
+
+
+def valid_run_id(run_id: str) -> bool:
+    return bool(_RUN_ID_OK.match(run_id or ""))
+
+
+def run_store_base(root: str, run_id: str, name: str = "ck") -> str:
+    """The store base ``<root>/<run_id>/<name>`` of one run of a fleet,
+    so concurrent runs' snapshots, pointers and crash logs never
+    collide; a run id that is not path-safe raises."""
+    if not valid_run_id(run_id):
+        raise ValueError(
+            f"run id {run_id!r} is not a valid store namespace "
+            "(want: letters/digits/._- only, starting with an "
+            "alphanumeric, <=100 chars)")
+    return os.path.join(root, run_id, name)
 
 
 def _sha256_file(path: str) -> str:

@@ -84,7 +84,10 @@ class SimReport:
     device: str = ""           # where the run executed (torch device)
     passes: int = 0            # drain passes over all windows
     memory: dict = field(default_factory=dict)  # the run's memory
-    #   watermark (obs.memscope.Watermark.snapshot)
+    #   watermark (obs.memscope.Watermark.snapshot), the state byte
+    #   census (``census``; its totals as state_bytes,
+    #   state_bytes_per_host, hot_state_bytes, cold_state_bytes and
+    #   the per-section bytes)
     network: dict = field(default_factory=dict)  # netscope runs: per
     #   kind (rtt/completion/queue/retx) bucket counts with exact
     #   p50/p90/p99 read-outs, the bounds, the record count and path
@@ -96,6 +99,12 @@ class SimReport:
     hosted: dict = field(default_factory=dict)  # hosted-process exit
     #   report: host name -> {"exit_status", "cause", "sim_ns", "clean",
     #   ...} (hosting.runtime.exit_info)
+    device_phases: dict = field(default_factory=dict)  # passcope runs:
+    #   the per-label pass table (obs.passcope.Capture.result)
+    occupancy: dict = field(default_factory=dict)  # lockstep occupancy
+    #   (obs.passcope.occupancy of the dense pass mix), always on
+    batch: dict = field(default_factory=dict)  # batch lanes
+    #   (serving.batch): {"lanes", "stacked_passes"}
 
     def total(self, stat: int) -> int:
         return int(self.stats[:, stat].sum())
@@ -139,9 +148,11 @@ class SimReport:
         """The lockstep drain's wasted-lane share: one minus the events
         run over the rows the passes stepped (passes x H). A pass may
         run two events on a row (an event and its chained NIC-TX), so
-        a busy run can read below zero. The port's own occupancy
-        figure; the reference's rung ladders count lanes differently,
-        so it is not a parity quantity."""
+        a busy run can read below zero. ``occupancy["waste_frac"]``
+        (obs.passcope) is the same figure rounded to 4 places, with
+        utilization clamped at 1, so it never reads below zero. The
+        reference's rung ladders count lanes differently, so neither
+        is a parity quantity."""
         lanes = self.passes * len(self.host_names)
         return 1.0 - self.events / lanes if lanes else 0.0
 
@@ -182,6 +193,8 @@ class SimReport:
         if self.memory:
             s["mem_peak_bytes"] = int(self.memory.get("peak_bytes", 0))
             s["mem_source"] = self.memory.get("source")
+            s["state_bytes_per_host"] = int(
+                self.memory.get("state_bytes_per_host", 0))
         # exact tails from the netscope histograms
         if self.network:
             kinds = self.network.get("kinds", {})
@@ -189,6 +202,13 @@ class SimReport:
             s["rtt_p99_us"] = kinds.get("rtt", {}).get("p99_us", 0)
             s["completion_p99_s"] = (
                 kinds.get("completion", {}).get("p99_us", 0) / 1e6)
+        if self.occupancy:
+            s["lane_utilization"] = self.occupancy.get("utilization")
+            from ..obs import passcope as PC
+            lbl, frac = PC.top_pass(self.device_phases)
+            if lbl is not None:
+                s["top_pass"] = lbl
+                s["top_pass_frac"] = frac
         if self.faults:
             s["faults_applied"] = len(self.faults)
         if self.hosted:
@@ -463,6 +483,16 @@ class Simulation:
         self.hosts.eq_ctr.copy_(t(eq_ctr, torch.int32))
         self.hosts.eq_next.copy_(t(eq_time.min(axis=1), torch.int64))
         self._ran = False
+        self._pscope = None
+
+    def effective_chunk(self, digest_every: int = 0) -> int:
+        """Windows per run_windows call: 1 under hosted apps (the CPU
+        tier runs between windows), shrunk to the digest cadence so
+        records land on exact window boundaries."""
+        chunk = 1 if self.hosting is not None else self.cfg.chunk_windows
+        if digest_every:
+            chunk = min(chunk, digest_every)
+        return chunk
 
     def run(self, clock=None, checkpoint_path: str = None,
             checkpoint_every_s: float = 0, checkpoint_keep: int = 0,
@@ -471,7 +501,8 @@ class Simulation:
             digest_context: dict = None, digest_rewind: bool = True,
             heartbeat_s: float = 0, logger=None, pcap_dir: str = None,
             trace: str = None, metrics: str = None,
-            netscope: str = None, verbose: bool = False) -> SimReport:
+            netscope: str = None, passcope: str = None,
+            verbose: bool = False) -> SimReport:
         """Run to the stop time. The state tensors are updated in place;
         the final state stays in ``self.hosts``. `clock` is passed to
         ``window.run_windows`` (per-phase wall split).
@@ -504,7 +535,14 @@ class Simulation:
         ``<metrics>.chunks.jsonl`` (``obs.metrics``). None of them
         changes a result. A trace or metrics recorder already installed
         process-wide takes this run's records and the path is
-        ignored."""
+        ignored.
+
+        `passcope` traces the first chunks (``SHADOW_TPU_PASSCOPE_CHUNKS``,
+        default 8) with torch.profiler and attributes them to the pass
+        labels (``obs.passcope``): ``SimReport.device_phases``, and
+        passcope.json in that directory. Unset, ``SHADOW_TPU_PASSCOPE``
+        enables it the same way (empty: ``passcope_trace``). Profiling
+        is observation only. ``SimReport.occupancy`` is always set."""
         if self._ran:
             raise RuntimeError("Simulation objects are single-use")
         self._ran = True
@@ -542,8 +580,11 @@ class Simulation:
                                   checkpoint_every_s, checkpoint_keep,
                                   resume_from, resume_unchecked,
                                   digest_rewind, heartbeat_s, logger,
-                                  pcap_dir, netscope, verbose)
+                                  pcap_dir, netscope, passcope, verbose)
         finally:
+            if self._pscope is not None:
+                # a run that raised must not leave the labels on
+                self._pscope.stop()
             # no hosted child outlives the run, whatever ended it (a
             # resume respawns and fast-forwards them from the journals)
             if self.hosting is not None:
@@ -558,11 +599,12 @@ class Simulation:
     def _run_impl(self, clock, checkpoint_path, checkpoint_every_s,
                   checkpoint_keep, resume_from, resume_unchecked,
                   digest_rewind, heartbeat_s, logger, pcap_dir,
-                  netscope, verbose) -> SimReport:
+                  netscope, passcope, verbose) -> SimReport:
         from ..obs import digest as DG
         from ..obs import memscope as MS
         from ..obs import metrics as MT
         from ..obs import netscope as NSC
+        from ..obs import passcope as PC
         from ..obs import trace as TR
         if TR.ENABLED:
             s0 = TR.TRACER.now()
@@ -599,6 +641,17 @@ class Simulation:
                               self.dns.ip_array(H),
                               np.flatnonzero(hp.pcap_on.cpu().numpy()))
         wm = MS.Watermark(self.device)
+        pc_dir = (passcope if passcope is not None
+                  else os.environ.get("SHADOW_TPU_PASSCOPE"))
+        if pc_dir == "":
+            pc_dir = "passcope_trace"
+        pscope = PC.Capture(pc_dir, self.device) if pc_dir else None
+        self._pscope = pscope
+        # the fleet's liveness signal: under a fleet worker
+        # (SHADOW_TPU_FLEET_RUN_DIR) each chunk touches
+        # <run_dir>/heartbeat, which the watchdog reads
+        hb_dir = os.environ.get("SHADOW_TPU_FLEET_RUN_DIR")
+        hb_path = os.path.join(hb_dir, "heartbeat") if hb_dir else None
         fingerprint = ckpt.scenario_fingerprint(self.scenario, cfg,
                                                 self.seed)
         store = (ckpt.CheckpointStore(checkpoint_path,
@@ -617,11 +670,7 @@ class Simulation:
                 self.device, checkpoint_path=checkpoint_path,
                 pcap=pcap_dir is not None, faults=inj is not None,
                 hosted=hosting is not None))
-        # the CPU tier runs between every window under hosted apps, and
-        # records land on exact window boundaries
-        chunk = 1 if hosting is not None else cfg.chunk_windows
-        if dg is not None:
-            chunk = min(chunk, dg.every)
+        chunk = self.effective_chunk(dg.every if dg is not None else 0)
         # the real stop time: a segment's Shared may carry the next
         # fault's time as its stop time instead
         stop_ns = int(sh.stop_time)
@@ -718,7 +767,15 @@ class Simulation:
         if TR.ENABLED:
             TR.TRACER.complete("run.setup", s0)
         wall0 = _time.perf_counter()
+        if pscope is not None:
+            pscope.start()
         while True:
+            if hb_path is not None:
+                try:
+                    with open(hb_path, "w") as f:
+                        f.write(f"{ws}\n")
+                except OSError:
+                    pass        # liveness is best-effort, never fatal
             if _PREEMPT.is_set():
                 saved = store is not None
                 if saved:
@@ -740,6 +797,8 @@ class Simulation:
                                            chunk, clock=clock)
             total_windows += n
             passes += npass
+            if pscope is not None:
+                pscope.chunk_done()
             wm.sample()
             if hosting is not None:
                 if TR.ENABLED:
@@ -878,6 +937,13 @@ class Simulation:
             durability["rsts"] = inj.rsts
         wm.sample()
         memory = wm.snapshot()
+        census = MS.state_census(cfg, hosts=st, hp=hp, sh=self.sh)
+        memory.update(MS.census_totals(census), census=census)
+        occ = PC.occupancy({"dense": (H, passes)},
+                           int(stats[:, defs.ST_EVENTS].sum()), 1)
+        dev = pscope.result() if pscope is not None else {}
+        if pscope is not None:
+            PC.write_json(pc_dir, dev, occ)
         # exact percentiles from the final histograms (not the last
         # sample: a run of zero chunks still reports)
         network = {}
@@ -896,11 +962,13 @@ class Simulation:
                            faults=list(inj.log) if inj is not None else [],
                            durability=durability,
                            hosted=(hosting.exit_info()
-                                   if hosting is not None else {}))
+                                   if hosting is not None else {}),
+                           device_phases=dev, occupancy=occ)
         if TR.ENABLED:
             TR.TRACER.complete("report.finalize", f0)
         if MT.ENABLED:
-            MS.publish(MT.REGISTRY, memory)
+            MS.publish(MT.REGISTRY, memory, census=census)
+            PC.publish(MT.REGISTRY, occ=occ, dev=dev or None)
             if network:
                 NSC.publish(MT.REGISTRY, network)
             report.summary()        # publishes the sim.* gauges

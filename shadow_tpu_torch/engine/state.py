@@ -94,6 +94,93 @@ STATE_SECTIONS = (
 )
 
 
+# The reference's hot/cold column declaration
+# (``shadow_tpu/engine/state.py``: COLD_FIELDS, HOT_FIELDS, COLD_WHEN,
+# ``hot_fields``). The port's drain moves every column, so nothing here
+# shapes a pass; the memory census (obs.memscope) reads it to label
+# each field as the reference's census does.
+COLD_FIELDS = frozenset({
+    "ob_next", "tr_time", "tr_pkt", "tr_dir", "tr_cnt", "tr_drop",
+    "cap_peaks",
+})
+
+HOT_FIELDS = (
+    "eq_time", "eq_seq", "eq_kind", "eq_pkt", "eq_ctr", "eq_next",
+    "rng_ctr", "cpu_avail",
+    "nic_busy", "nic_sched", "nic_rr", "nic_rx_until",
+    "txq_pkt", "txq_head", "txq_cnt", "pkt_ctr", "next_eport",
+    "sk_used", "sk_proto", "sk_state", "sk_lport", "sk_rport",
+    "sk_rhost", "sk_parent", "sk_snd_una", "sk_snd_nxt", "sk_snd_max",
+    "sk_snd_end", "sk_rcv_nxt", "sk_ooo_s", "sk_ooo_e", "sk_sack_s",
+    "sk_sack_e", "sk_hole_end", "sk_rex_nxt", "sk_peer_fin",
+    "sk_fin_acked", "sk_close_after", "sk_cwnd", "sk_ssthresh",
+    "sk_srtt", "sk_rtt_min", "sk_rttvar", "sk_rto", "sk_rto_deadline",
+    "sk_timer_on", "sk_timer_gen", "sk_dupacks", "sk_rtt_seq",
+    "sk_rtt_time", "sk_ctl", "sk_peer_rwnd", "sk_sndbuf", "sk_rcvbuf",
+    "sk_hs_time", "sk_last_tx", "sk_syn_tag", "sk_proc", "sk_app_ref",
+    "sk_cc_wmax", "sk_cc_epoch", "sk_cc_k",
+    "app_node", "app_r", "app_proc", "tgen_sync",
+    "ob_pkt", "ob_time", "ob_cnt",
+    "hw_time", "hw_pkt", "hw_cnt", "hw_drop",
+    "stats", "ns_hist",
+)
+
+COLD_WHEN = (
+    ("cpu_model_off", ("cpu_avail",)),
+    ("no_hosted", ("hw_time", "hw_pkt", "hw_cnt", "hw_drop")),
+    ("no_tgen", ("tgen_sync",)),
+    ("no_tcp", (
+        "sk_state", "sk_rport", "sk_rhost", "sk_parent", "sk_snd_una",
+        "sk_snd_nxt", "sk_snd_max", "sk_ooo_s", "sk_ooo_e",
+        "sk_sack_s", "sk_sack_e", "sk_hole_end", "sk_rex_nxt",
+        "sk_peer_fin", "sk_fin_acked", "sk_close_after", "sk_cwnd",
+        "sk_ssthresh", "sk_srtt", "sk_rtt_min", "sk_rttvar", "sk_rto",
+        "sk_rto_deadline", "sk_timer_on", "sk_dupacks", "sk_rtt_seq",
+        "sk_rtt_time", "sk_ctl", "sk_peer_rwnd", "sk_sndbuf",
+        "sk_rcvbuf", "sk_hs_time", "sk_last_tx", "sk_syn_tag",
+        "sk_app_ref", "sk_cc_wmax", "sk_cc_epoch", "sk_cc_k",
+    )),
+    ("no_tcp_single_proc", ("sk_proc",)),
+    ("netscope_off", ("ns_hist",)),
+)
+
+
+def _guard_holds(guard: str, cfg: EngineConfig) -> bool:
+    from ..apps.base import APP_HOSTED, APP_TGEN
+
+    def has_app(kind):
+        return cfg.app_kinds is None or kind in cfg.app_kinds
+
+    no_hosted = cfg.hostedcap <= 1 and not has_app(APP_HOSTED)
+    if guard == "cpu_model_off":
+        return not cfg.cpu_model
+    if guard == "no_hosted":
+        return no_hosted
+    if guard == "no_tgen":
+        return not has_app(APP_TGEN)
+    if guard == "no_tcp":
+        return not cfg.uses_tcp and no_hosted
+    if guard == "no_tcp_single_proc":
+        return (not cfg.uses_tcp and no_hosted
+                and cfg.procs_per_host <= 1)
+    if guard == "netscope_off":
+        return not cfg.netscope
+    raise KeyError(f"unknown COLD_WHEN guard {guard!r}")
+
+
+def hot_fields(cfg: EngineConfig) -> tuple:
+    """The reference drain's runtime working set for this config:
+    HOT_FIELDS minus each COLD_WHEN column whose guard holds; every
+    field with ``hot_split == 0``."""
+    if not cfg.hot_split:
+        return tuple(f.name for f in fields(Hosts))
+    off = set()
+    for guard, flds in COLD_WHEN:
+        if _guard_holds(guard, cfg):
+            off.update(flds)
+    return tuple(f for f in HOT_FIELDS if f not in off)
+
+
 def section_of(field: str, *, strict: bool = False) -> str:
     """Digest section for a Hosts field; with strict=True an unmapped
     field raises instead of landing in "other"."""
@@ -312,6 +399,7 @@ class HostParams:
 @dataclass
 class Shared:
     """Replicated loop-invariant tables and scalars."""
+    lanes = 1       # one scenario (LaneShared stacks several)
     lat_ns: torch.Tensor      # [V, V] i64 path latency
     rel: torch.Tensor         # [V, V] f32 path reliability
     host_vertex: torch.Tensor  # [H] i32
@@ -428,6 +516,17 @@ def alloc_hosts(cfg: EngineConfig, device) -> Hosts:
     )
 
 
+def shape_census(cfg: EngineConfig) -> dict:
+    """{field: (shape, dtype name)} of every Hosts column at this
+    config, from ``alloc_hosts`` on the meta device (no memory): the
+    counterpart of the reference's ``shape_census``. The device state
+    is wide, whatever ``cfg.wide_state`` says."""
+    h = alloc_hosts(cfg, "meta")
+    return {f.name: (tuple(int(d) for d in getattr(h, f.name).shape),
+                     str(getattr(h, f.name).dtype).replace("torch.", ""))
+            for f in fields(h)}
+
+
 def make_shared(topo_lat_ns: np.ndarray, topo_rel: np.ndarray,
                 stop_time: int, min_jump: int, device, seed: int = 1,
                 cc_kind: int = 2, tcp_init_wnd: float = 10.0,
@@ -478,4 +577,97 @@ def make_shared(topo_lat_ns: np.ndarray, topo_rel: np.ndarray,
         tgen_peers=t(tgen_peers, torch.int32),
         tgen_pool=t(tgen_pool, torch.int64),
         tgen_edges=t(tgen_edges, torch.int32),
+    )
+
+
+# --- Lanes: same-shape scenarios stacked along the row axis -----------------
+#
+# B scenarios that share one EngineConfig and array shapes run as one
+# state of B*H rows, row b*H + h holding host h of lane b: one drain
+# pass steps every lane (engine.window.run_windows_batch). Host ids, the
+# packet words and the PRNG streams stay lane-local; what the engine
+# reads from Shared becomes per lane or per row (LaneShared).
+
+
+@dataclass
+class LaneShared:
+    """Shared of B stacked lanes (the engine reads the same names).
+    Scalars are [B] per lane; the per-host and TCP values are [B*H]
+    per row; the topology tables are [B, V, V]; each tgen table is the
+    lanes' tables one after another, read through ``tgen_base`` (row
+    -> offset of its lane's copy)."""
+    lanes: int
+    hosts: int
+    lat_ns: torch.Tensor        # [B, V, V] i64
+    rel: torch.Tensor           # [B, V, V] f32
+    host_vertex: torch.Tensor   # [B*H] i32
+    host_bw_up: torch.Tensor    # [B*H] i64
+    host_bw_down: torch.Tensor  # [B*H] i64
+    seed32: torch.Tensor        # [B] u32
+    drop_base: torch.Tensor     # [B] i64 loss-roll stream base of each seed
+    stop_time: torch.Tensor     # [B] i64
+    min_jump: torch.Tensor      # [B] i64
+    cc_kind: torch.Tensor       # [B*H] i32
+    tcp_init_wnd: torch.Tensor  # [B*H] f32
+    tcp_ssthresh0: torch.Tensor  # [B*H] f32
+    tgen_nodes: torch.Tensor    # [B*N, 10] i64
+    tgen_peers: torch.Tensor    # [B*NP, 2] i32
+    tgen_pool: torch.Tensor     # [B*NS] i64
+    tgen_edges: torch.Tensor    # [B*NE] i32
+    tgen_base: dict             # table name -> [B*H] i64 row offset
+
+
+def stack_rows(trees: list):
+    """Hosts or HostParams of B lanes -> one of B*H rows (copies)."""
+    cls = type(trees[0])
+    return cls(**{f.name: torch.cat([getattr(t, f.name) for t in trees])
+                  for f in fields(cls)})
+
+
+def lane_rows(tree, b: int, H: int):
+    """Rows [b*H, (b+1)*H) of a stacked Hosts or HostParams, as views."""
+    cls = type(tree)
+    return cls(**{f.name: getattr(tree, f.name)[b * H:(b + 1) * H]
+                  for f in fields(cls)})
+
+
+def stack_shared(shs: list, H: int) -> LaneShared:
+    """The Shared of B lanes (same shapes) as one LaneShared."""
+    from ..core import rng as R
+    B = len(shs)
+    dev = shs[0].lat_ns.device
+
+    def rows(name):
+        # a scalar per lane, repeated over its H rows
+        return torch.stack([getattr(s, name) for s in shs]
+                           ).repeat_interleave(H)
+
+    def cat(name):
+        return torch.cat([getattr(s, name) for s in shs])
+
+    def base(name):
+        n = getattr(shs[0], name).shape[0]
+        return (torch.arange(B, dtype=torch.int64, device=dev) * n
+                ).repeat_interleave(H)
+
+    seeds = [int(s.seed32) for s in shs]
+    tg = ("tgen_nodes", "tgen_peers", "tgen_pool", "tgen_edges")
+    return LaneShared(
+        lanes=B, hosts=H,
+        lat_ns=torch.stack([s.lat_ns for s in shs]),
+        rel=torch.stack([s.rel for s in shs]),
+        host_vertex=cat("host_vertex"),
+        host_bw_up=cat("host_bw_up"),
+        host_bw_down=cat("host_bw_down"),
+        seed32=torch.stack([s.seed32 for s in shs]),
+        drop_base=torch.tensor([R.stream_base(sd, R.DOMAIN_DROP)
+                                for sd in seeds], dtype=torch.int64,
+                               device=dev),
+        stop_time=torch.stack([s.stop_time for s in shs]),
+        min_jump=torch.stack([s.min_jump for s in shs]),
+        cc_kind=rows("cc_kind"),
+        tcp_init_wnd=rows("tcp_init_wnd"),
+        tcp_ssthresh0=rows("tcp_ssthresh0"),
+        **{name: cat(name) for name in tg},
+        tgen_base={name: base(name) for name in tg},
     )

@@ -35,11 +35,12 @@ _SUPERVISOR_FLAGS = {"--until-complete"}
 _SUPERVISOR_OPTS = {"--max-retries", "--retry-backoff"}
 
 
-def backoff_delay(base_s: float, failures: int) -> float:
+def backoff_delay(base_s: float, failures: int,
+                  cap_s: float = BACKOFF_CAP_S) -> float:
     """Delay before retry number `failures` (1-based): doubling from
-    `base_s` up to BACKOFF_CAP_S."""
+    `base_s` up to `cap_s` (the supervisor's and the fleet's rule)."""
     return min(float(base_s) * (2 ** max(int(failures) - 1, 0)),
-               BACKOFF_CAP_S)
+               float(cap_s))
 
 
 class CrashLog:

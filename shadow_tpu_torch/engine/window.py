@@ -46,6 +46,7 @@ from ..net import packet as P
 from ..net import tcp
 from ..net.socket import sock_demux
 from ..net.udp import udp_deliver
+from ..obs.passcope import scope
 from . import equeue
 from .defs import (EV_APP, EV_NIC_TX, EV_NULL, EV_PKT, EV_TCP_CLOSE,
                    EV_TCP_TIMER, N_EVENT_KINDS, ST_DEFER_FANIN, ST_EVENTS,
@@ -71,7 +72,8 @@ def _app_code(app_kind, branch):
 
 def _on_pkt(st, hp, sh, m, now, pkt, cfg: EngineConfig, parts):
     """Packet arrival at the NIC: admission, demux, TCP or UDP."""
-    keep = nic.rx_admit(st, hp, m, now, pkt)
+    with scope("nic.rx_admit"):
+        keep = nic.rx_admit(st, hp, m, now, pkt)
     md = m & keep
     col_add(st.stats, ST_PKTS_RECV, md)
     pkt_in = pkt.clone()
@@ -81,15 +83,17 @@ def _on_pkt(st, hp, sh, m, now, pkt, cfg: EngineConfig, parts):
         is_tcp = (pkt[:, P.FLAGS] & P.PROTO_MASK) == P.PROTO_TCP
         mu = md & ~is_tcp
         if parts & {"rst", "accept", "conn"}:
-            slot = sock_demux(st, pkt[:, P.SRC], pkt[:, P.SPORT],
-                              pkt[:, P.DPORT], P.PROTO_TCP)
-            tcp.tcp_rx(st, hp, sh, md & is_tcp & (slot >= 0), now, slot,
-                       pkt_in, parts)
+            with scope("tcp.rx"):
+                slot = sock_demux(st, pkt[:, P.SRC], pkt[:, P.SPORT],
+                                  pkt[:, P.DPORT], P.PROTO_TCP)
+                tcp.tcp_rx(st, hp, sh, md & is_tcp & (slot >= 0), now,
+                           slot, pkt_in, parts)
         if "udp" not in parts:
             return
-    slot = sock_demux(st, pkt[:, P.SRC], pkt[:, P.SPORT], pkt[:, P.DPORT],
-                      P.PROTO_UDP)
-    udp_deliver(st, hp, sh, mu & (slot >= 0), now, slot, pkt_in)
+    with scope("udp.deliver"):
+        slot = sock_demux(st, pkt[:, P.SRC], pkt[:, P.SPORT],
+                          pkt[:, P.DPORT], P.PROTO_UDP)
+        udp_deliver(st, hp, sh, mu & (slot >= 0), now, slot, pkt_in)
 
 
 def _tcp_features(st, kind, pkt, t):
@@ -150,12 +154,18 @@ def _pass_flags(st, kind, app_kind, branch, pkt, t, cfg: EngineConfig,
     return codes, parts, any_blocked, paused
 
 
-def step_all_hosts(st, hp, sh, wend: int, cfg: EngineConfig) -> bool:
+def step_all_hosts(st, hp, sh, wend, cfg: EngineConfig,
+                   lane_passes=None) -> bool:
     """One lockstep pass: every host whose earliest event lies below
     `wend` pops and runs it. Returns False, changing nothing, when no
-    host has one, or when a hosted wake ring is near full."""
+    host has one, or when a hosted wake ring is near full.
+
+    `wend` is an int, or a [rows] tensor holding each row's own window
+    end (stacked lanes); `lane_passes` ([B] int64), when given, counts
+    the passes in which each lane had a row to step."""
     slot, t = equeue.q_min(st)
     ready = t < wend
+    stepped = ready
     kind = torch.where(ready, rget(st.eq_kind, slot), EV_NULL)
     pkt = rget(st.eq_pkt, slot)
     # the app kind of each wake's process: with one process per host the
@@ -178,6 +188,8 @@ def step_all_hosts(st, hp, sh, wend: int, cfg: EngineConfig) -> bool:
     flags.discard(EV_NULL)
     if paused or (not flags and not any_blocked):
         return False
+    if lane_passes is not None:
+        lane_passes += stepped.view(lane_passes.shape[0], -1).any(1)
 
     if any_blocked:
         equeue.q_clear_slot(st, blocked, slot)
@@ -192,11 +204,13 @@ def step_all_hosts(st, hp, sh, wend: int, cfg: EngineConfig) -> bool:
     if EV_PKT in flags:
         _on_pkt(st, hp, sh, kind == EV_PKT, t, pkt, cfg, parts)
     if EV_NIC_TX in flags:
-        nic.on_tx(st, hp, sh, kind == EV_NIC_TX, t, wend, cfg.qdisc,
-                  tcp=cfg.uses_tcp, pull_tcp="pull" in parts)
+        with scope("nic.tx"):
+            nic.on_tx(st, hp, sh, kind == EV_NIC_TX, t, wend, cfg.qdisc,
+                      tcp=cfg.uses_tcp, pull_tcp="pull" in parts)
     if cfg.uses_tcp and EV_TCP_TIMER in flags:
-        tcp.on_tcp_timer(st, hp, sh, kind == EV_TCP_TIMER, t, wend, pkt,
-                         expired="rto" in parts)
+        with scope("tcp.timer"):
+            tcp.on_tcp_timer(st, hp, sh, kind == EV_TCP_TIMER, t, wend,
+                             pkt, expired="rto" in parts)
     if cfg.uses_tcp and EV_TCP_CLOSE in flags:
         tcp.on_tcp_close(st, hp, sh, kind == EV_TCP_CLOSE, t, wend, pkt)
 
@@ -219,16 +233,19 @@ def step_all_hosts(st, hp, sh, wend: int, cfg: EngineConfig) -> bool:
         any_due, pull = bool(due.any()), False     # host sync
     if any_due:
         equeue.q_clear_slot(st, due, slot2)
-        nic.on_tx(st, hp, sh, due, t, wend, cfg.qdisc, tcp=cfg.uses_tcp,
-                  pull_tcp=pull)
+        with scope("nic.tx"):
+            nic.on_tx(st, hp, sh, due, t, wend, cfg.qdisc,
+                      tcp=cfg.uses_tcp, pull_tcp=pull)
     st.stats[:, ST_EVENTS] += ready.to(torch.int64) + due.to(torch.int64)
     return True
 
 
-def drain_window(st, hp, sh, wend: int, cfg: EngineConfig) -> int:
-    """Execute every event below `wend`; returns the pass count."""
+def drain_window(st, hp, sh, wend, cfg: EngineConfig,
+                 lane_passes=None) -> int:
+    """Execute every event below `wend` (an int, or each row's own);
+    returns the pass count."""
     passes = 0
-    while step_all_hosts(st, hp, sh, wend, cfg):
+    while step_all_hosts(st, hp, sh, wend, cfg, lane_passes):
         passes += 1
     return passes
 
@@ -343,7 +360,6 @@ def exchange(st, hp, sh, cfg: EngineConfig, seed: int):
     event queues; carry what the destinations cannot take this window
     (arrival stamps unchanged — exact deferral, never a drop)."""
     H, O = st.ob_time.shape
-    IN = cfg.incap
     N = H * O
 
     pkts = st.ob_pkt.reshape(N, P.PKT_WORDS).clone()
@@ -367,27 +383,79 @@ def exchange(st, hp, sh, cfg: EngineConfig, seed: int):
     u = R.cheap_uniform(R.stream_of(seed, R.DOMAIN_DROP, src),
                         pkts[:, P.UID])
     deliver = valid & (rel > 0) & (u <= rel)
-    net_dropped = valid & ~deliver
+    _deliver_and_carry(st, hp, cfg, pkts, stimes, arrival, valid,
+                       deliver, torch.where(deliver, dst, H))
 
-    sortkey = torch.where(deliver, dst, H)
+
+def _deliver_and_carry(st, hp, cfg: EngineConfig, pkts, stimes, arrival,
+                       valid, deliver, sortkey, frozen=None):
+    """The exchange after routing: stable-sort the delivered packets by
+    destination row (`sortkey`; undelivered ones sort last), take each
+    destination's intake, count the losses and deferrals, carry the
+    rest (and the `frozen` slots, untouched) and merge the arrivals."""
+    rows, O = st.ob_time.shape
+    net_dropped = valid & ~deliver
     order = torch.argsort(sortkey, stable=True)
     sdst = sortkey[order]
     nfree = (st.eq_time == SIMTIME_MAX).sum(1)
     in_pkt, in_time, kept_sorted = _deliver_dense(
-        nfree, order, sdst, pkts, arrival, IN, cfg)
-    kept = torch.zeros(N, dtype=torch.bool, device=pkts.device)
+        nfree, order, sdst, pkts, arrival, cfg.incap, cfg)
+    kept = torch.zeros(sortkey.shape[0], dtype=torch.bool,
+                       device=pkts.device)
     kept[order] = kept_sorted
 
     if cfg.tracecap:
         # tx records of the packets departing this window, lost ones
         # included (a carried packet is traced in the window it ships)
-        _trace_append(st, pkts.view(H, O, -1), stimes.view(H, O),
-                      (kept | net_dropped).view(H, O), 1, hp.pcap_on)
+        _trace_append(st, pkts.view(rows, O, -1), stimes.view(rows, O),
+                      (kept | net_dropped).view(rows, O), 1, hp.pcap_on)
     stay = deliver & ~kept
-    st.stats[:, ST_PKTS_DROP_NET] += net_dropped.view(H, O).sum(1)
-    st.stats[:, ST_DEFER_FANIN] += stay.view(H, O).sum(1)
+    st.stats[:, ST_PKTS_DROP_NET] += net_dropped.view(rows, O).sum(1)
+    st.stats[:, ST_DEFER_FANIN] += stay.view(rows, O).sum(1)
+    if frozen is not None:
+        stay = stay | frozen
     _carry_outbox(st, pkts, stimes, arrival, stay, O)
     merge_arrivals(st, in_pkt, in_time, hp, cfg)
+
+
+def exchange_lanes(st, hp, sh, cfg: EngineConfig, active):
+    """``exchange`` over stacked lanes (``sh`` a LaneShared): each
+    packet routes through its lane's tables, rolls loss with its lane's
+    seed and lands at row lane*H + DST; a packet's words stay
+    lane-local. The outbox of a lane that is not `active` ([B] bool)
+    is left as it is, as jax's batched while_loop leaves a finished
+    lane's carry."""
+    B, H = sh.lanes, sh.hosts
+    O = st.ob_time.shape[1]
+    N = B * H * O
+    dev = st.ob_time.device
+
+    pkts = st.ob_pkt.reshape(N, P.PKT_WORDS).clone()
+    stimes = st.ob_time.reshape(N)
+    ar_o = torch.arange(O, device=dev)
+    live = (ar_o[None, :] < st.ob_cnt[:, None]).reshape(N)
+    on = active.repeat_interleave(H * O)
+    valid = live & on
+
+    lane = torch.arange(N, device=dev) // (H * O)
+    row0 = lane * H
+    src = pkts[:, P.SRC].clamp(0, H - 1).to(torch.int64)
+    dst = pkts[:, P.DST].clamp(0, H - 1).to(torch.int64)
+    sv = sh.host_vertex[row0 + src].to(torch.int64)
+    dv = sh.host_vertex[row0 + dst].to(torch.int64)
+    lat = sh.lat_ns[lane, sv, dv]
+    rel = sh.rel[lane, sv, dv]
+    arrival = stimes + lat
+    is_syn = on & ((pkts[:, P.FLAGS] & P.F_SYN) != 0)
+    pkts[:, P.SEQ] = torch.where(is_syn, (lat // 1000).to(torch.int32),
+                                 pkts[:, P.SEQ])
+
+    u = R.cheap_uniform(R.stream_from(sh.drop_base[lane], src),
+                        pkts[:, P.UID])
+    deliver = valid & (rel > 0) & (u <= rel)
+    _deliver_and_carry(st, hp, cfg, pkts, stimes, arrival, valid,
+                       deliver, torch.where(deliver, row0 + dst, B * H),
+                       frozen=live & ~on)
 
 
 def update_cap_peaks(st):
@@ -421,7 +489,8 @@ def run_windows(st, hp, sh, wstart: int, wend: int, cfg: EngineConfig,
     given, is called with "drain", "exchange" and "advance" as each
     phase of a window ends (a wall-time split; chip_smoke --profile).
     Runs in inference mode: nothing here needs autograd, and skipping
-    its bookkeeping shortens every operation's host time."""
+    its bookkeeping shortens every operation's host time. Under an
+    active passcope capture each phase is a labelled range."""
     tick = clock or (lambda _label: None)
     stop = int(sh.stop_time)
     min_jump = int(sh.min_jump)
@@ -430,24 +499,80 @@ def run_windows(st, hp, sh, wstart: int, wend: int, cfg: EngineConfig,
     while i < max_windows and ws < stop and ws < SIMTIME_MAX:
         # never execute past the simulation end
         we_eff = min(we, stop)
-        ran = next_event_time(st) < we_eff
-        passes += drain_window(st, hp, sh, we_eff, cfg)
+        with scope("drain"):
+            ran = next_event_time(st) < we_eff
+            passes += drain_window(st, hp, sh, we_eff, cfg)
         tick("drain")
-        update_cap_peaks(st)
-        ob0 = int(st.ob_cnt.sum())
-        if ob0:     # an empty exchange is the identity
-            exchange(st, hp, sh, cfg, seed)
-        update_cap_peaks(st)
+        with scope("cap_peaks"):
+            update_cap_peaks(st)
+        with scope("exchange"):
+            ob0 = int(st.ob_cnt.sum())
+            if ob0:     # an empty exchange is the identity
+                exchange(st, hp, sh, cfg, seed)
+        with scope("cap_peaks"):
+            update_cap_peaks(st)
         tick("exchange")
-        # anti-livelock: a window that executed nothing and shipped
-        # nothing re-opens at the earliest queue event, not at the same
-        # carried arrival
-        progressed = ran or int(st.ob_cnt.sum()) < ob0
-        nt = next_wakeup(st) if progressed else next_event_time(st)
-        ws, we = nt, (SIMTIME_MAX if nt == SIMTIME_MAX else nt + min_jump)
+        with scope("advance"):
+            # anti-livelock: a window that executed nothing and shipped
+            # nothing re-opens at the earliest queue event, not at the
+            # same carried arrival
+            progressed = ran or int(st.ob_cnt.sum()) < ob0
+            nt = next_wakeup(st) if progressed else next_event_time(st)
+            ws, we = nt, (SIMTIME_MAX if nt == SIMTIME_MAX
+                          else nt + min_jump)
         tick("advance")
         i += 1
     return ws, we, i, passes
+
+
+@torch.inference_mode()
+def run_windows_batch(st, hp, sh, ws, we, cfg: EngineConfig,
+                      max_windows: int, lane_passes):
+    """``run_windows`` over B lanes stacked along the row axis (``sh`` a
+    LaneShared; `ws`, `we` [B] int64 tensors, updated in place).
+
+    Each lane runs up to `max_windows` windows of its own, exactly the
+    windows its individual run would: a lane whose chunk or run has
+    ended is frozen (its rows' window end is 0, so they pop nothing,
+    and its outbox is left alone), as jax's batched while_loop freezes
+    a finished lane. One drain pass steps every lane, and the advance
+    takes each lane's values from one [B, H] reduction, so a window
+    costs two host syncs whatever B is. `lane_passes` ([B] int64)
+    counts each lane's passes. Returns (windows run [B] tensor, drain
+    passes)."""
+    B, H = sh.lanes, sh.hosts
+    i = torch.zeros(B, dtype=torch.int64, device=ws.device)
+    passes = 0
+    while True:
+        with scope("advance"):
+            active = (i < max_windows) & (ws < sh.stop_time) \
+                & (ws < SIMTIME_MAX)
+            if not bool(active.any()):          # host sync
+                break
+            we_eff = torch.minimum(we, sh.stop_time)
+            ran = st.eq_next.view(B, H).min(1).values < we_eff
+            wend = torch.where(active, we_eff, 0).repeat_interleave(H)
+        with scope("drain"):
+            passes += drain_window(st, hp, sh, wend, cfg, lane_passes)
+        with scope("cap_peaks"):
+            update_cap_peaks(st)
+        with scope("exchange"):
+            ob0 = st.ob_cnt.view(B, H).sum(1) * active
+            if bool(ob0.any()):                 # host sync
+                exchange_lanes(st, hp, sh, cfg, active)
+        with scope("cap_peaks"):
+            update_cap_peaks(st)
+        with scope("advance"):
+            progressed = ran | (st.ob_cnt.view(B, H).sum(1) < ob0)
+            nq = st.eq_next.view(B, H).min(1).values
+            nt = torch.where(progressed, torch.minimum(
+                nq, st.ob_next.view(B, H).min(1).values), nq)
+            we2 = torch.where(nt == SIMTIME_MAX, SIMTIME_MAX,
+                              nt + sh.min_jump)
+            ws.copy_(torch.where(active, nt, ws))
+            we.copy_(torch.where(active, we2, we))
+            i += active
+    return i, passes
 
 
 # --- Determinism canonicalization -------------------------------------------

@@ -75,12 +75,14 @@ def git_rev() -> str | None:
 
 def make_entry(scenario: str, fingerprint: str, platform: str,
                summary: dict, phases: dict = None,
-               attributed_frac: float = None, cfg=None) -> dict:
+               attributed_frac: float = None, cfg=None,
+               note: str = None) -> dict:
     """One ledger line from a run's summary (SimReport.summary()).
     `phases` is the per-phase wall map from obs.perf ({phase: wall_s});
     `cfg` stamps the engine knobs a rate move is read against. The
     port compiles nothing, so an entry has no cold/warm split and the
-    gate compares its whole-run rate."""
+    gate compares its whole-run rate. `note` says how to read the
+    entry (a batch lane's wall is the whole batch's)."""
     e = {
         "format": FORMAT, "version": VERSION,
         "ts": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
@@ -98,6 +100,8 @@ def make_entry(scenario: str, fingerprint: str, platform: str,
         "events_per_sec": round(summary.get("events_per_sec", 0.0), 1),
         "warm_events_per_sec": None,
     }
+    if note:
+        e["note"] = note
     if summary.get("device"):
         e["device"] = summary["device"]
     if summary.get("passes"):
@@ -110,6 +114,8 @@ def make_entry(scenario: str, fingerprint: str, platform: str,
         e["mem_peak_bytes"] = int(summary["mem_peak_bytes"])
         if summary.get("mem_source"):
             e["mem_source"] = summary["mem_source"]
+    if summary.get("state_bytes_per_host"):
+        e["state_bytes_per_host"] = int(summary["state_bytes_per_host"])
     # netscope tails (netscope runs only)
     if "rtt_p50_us" in summary:
         e["rtt_p50_us"] = int(summary["rtt_p50_us"])
@@ -118,6 +124,9 @@ def make_entry(scenario: str, fingerprint: str, platform: str,
     # the lockstep drain's wasted-lane fraction (the occupancy gate)
     if "waste_frac" in summary:
         e["waste_frac"] = summary["waste_frac"]
+        if "top_pass" in summary:
+            e["top_pass"] = summary["top_pass"]
+            e["top_pass_frac"] = summary["top_pass_frac"]
     if phases:
         e["phases"] = {k: round(v, 4) for k, v in phases.items()}
     if attributed_frac is not None:
@@ -157,6 +166,26 @@ def key_of(e: dict) -> tuple:
 def read(path: str) -> list:
     """All well-formed ledger entries, file order; a torn line (a writer
     killed mid-append) is skipped with a warning on stderr."""
+    return jsonl_read(path, "ledger")
+
+
+def jsonl_append(path: str, obj: dict, fsync: bool = False,
+                 sort_keys: bool = False) -> None:
+    """Append one JSON line; ``fsync=True`` makes it durable before
+    returning (the fleet journal and crash-cause logs): a kill after
+    the return cannot lose the record, only tear a line still in
+    flight, which jsonl_read skips."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "a") as f:
+        f.write(json.dumps(obj, sort_keys=sort_keys) + "\n")
+        f.flush()
+        if fsync:
+            os.fsync(f.fileno())
+
+
+def jsonl_read(path: str, label: str = "jsonl") -> list:
+    """All well-formed dict lines of a JSONL file, file order; a torn
+    line is skipped with a warning on stderr naming `label`."""
     out = []
     if not os.path.exists(path):
         return out
@@ -169,7 +198,7 @@ def read(path: str) -> list:
                 e = json.loads(line)
             except json.JSONDecodeError:
                 sys.stderr.write(
-                    f"ledger: {path}:{i}: skipping malformed line "
+                    f"{label}: {path}:{i}: skipping malformed line "
                     "(torn append?)\n")
                 continue
             if isinstance(e, dict):
