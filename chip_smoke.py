@@ -25,6 +25,26 @@ The timed phases run first, each alone on the card and the host:
               net sections in metrics.json, >= 90% of the wall attributed
               or the residual named, a ``cuda`` ledger entry; the wall
               printed beside phase 4's.
+22. passcope — phold-4096 to 2 sim-s (one sim-s of traffic after its
+              1 s start) in 16-window chunks, once plain and once with
+              ``run(passcope=DIR)`` tracing the first chunk: equal stats,
+              windows and passes, and >= 90% of the card's kernel time
+              attributed to pass labels; prints the label table (kernel
+              ms, host issue ms and sync ms per label, and runtime_ms,
+              the host's waits for the card).
+24. batch-phold-4096x4 — four lanes of phold-4096 (bench.py's shape,
+              16,384 rows), seeds 1-4, 5 sim-s, through
+              ``serving.batch.run_batch``: each lane's digest chain,
+              stats, windows and passes equal its seed's run alone on
+              the card; prints the batch wall, the summed events/s, the
+              stacked passes and the four walls alone.
+Then the checks that time nothing run, beside phases 5-7, 13, 17, 20
+and 26-27, each in a process of its own on the same card (‡ in
+PERF.md: the walls of 5 and 6 are taken beside the other processes;
+with them alone the script ran past its time limit on slower hosts).
+The span replays of 5 and 6 (launches per pass, busy share) wait until
+every other process has finished, and run one after the other, alone:
+
 5. socks10k — 10,000 hosts (1,000 bulkservers, 1,000 socksproxies,
               8,000 socksclients fetching 48 KiB through one relay) on
               the ER-300 stand-in topology, runahead 10 ms, through
@@ -37,26 +57,11 @@ The timed phases run first, each alone on the card and the host:
               through Simulation: GETs and PUTs complete, no walk branch
               is lost, no socket table or event queue overflows; launches
               per pass and the busy share from a span of its passes.
-22. passcope — phold-4096 to 2 sim-s (one sim-s of traffic after its
-              1 s start) in 16-window chunks, once plain and once with
-              ``run(passcope=DIR)`` tracing the first chunk: equal stats,
-              windows and passes, and >= 90% of the card's kernel time
-              attributed to pass labels; prints the label table (kernel
-              ms, host issue ms and sync ms per label, and runtime_ms,
-              the host's waits for the card).
-23. census  — no run of its own: socks10k's ``SimReport.memory``
-              census (state bytes, per host, hot) beside the allocator's
-              peak (``torch.cuda.max_memory_allocated``), which must
-              hold the state.
-24. batch-phold-4096x4 — four lanes of phold-4096 (bench.py's shape,
-              16,384 rows), seeds 1-4, 5 sim-s, through
-              ``serving.batch.run_batch``: each lane's digest chain,
-              stats, windows and passes equal its seed's run alone on
-              the card; prints the batch wall, the summed events/s, the
-              stacked passes and the four walls alone.
-The checks that time nothing run after them, beside phases 7, 17 and
-20, each in a process of its own on the same card:
-
+23. census  — no run of its own (in 5.'s process): socks10k's
+              ``SimReport.memory`` census (state bytes, per host, hot)
+              beside the allocator's peak
+              (``torch.cuda.max_memory_allocated``), which must hold the
+              state.
 7. cli-tgen — examples/tgen-web-bulk.xml through ``python -m
               shadow_tpu_torch`` on the card: every web host completes
               its 10 GETs and every bulk host its 5.
@@ -102,6 +107,28 @@ The checks that time nothing run after them, beside phases 7, 17 and
               the loopback self-channel, a pipe, the cping C plugin) on
               cuda and on cpu: equal stats, windows, Hosts fields (the
               wake rings included) and what the apps saw.
+26. mesh-phold-4096x4 — phold-4096 on a four-shard mesh on the card
+              (``parallel.shard.make_mesh(4)``, every shard on cuda:0):
+              the stats, windows and digest chain (every 64 windows) of
+              an untimed single run of phase 3's shape, whose stats and
+              windows equal phase 3's; prints the wall, the passes and
+              events per shard and their imbalance. Then
+27. mesh-gossip-100k — examples/gossip-100k.xml as written, 100,000 hosts
+              on four shards: phase 4's stats and windows; the same
+              figures. 26 and 27 run in one process of their own, started
+              with 7's (‡ in PERF.md: their walls are taken beside the
+              other processes).
+28. mesh-tcp-gpu=cpu — phase 11's lossy 2-hop SOCKS shape to 30 sim-s on
+              four shards with two-slot exchange buckets (``a2acap=2``):
+              bursts defer into ST_DEFER_A2A (> 0), and the card's mesh
+              gives the CPU mesh's stats, windows and digest chain (the
+              CPU half in a process of its own, started with 7's).
+29. dist-phold — phold-4096 on two processes of two shards each, through
+              ``parallel.dist`` on the card (gloo with fewer than two
+              cards, as NCCL refuses two ranks on one; nccl otherwise;
+              the backend printed): phase 3's stats and windows, 26's
+              single chain, and the bytes the gloo collectives staged
+              through host memory; the ranks start after 21., beside 28.
 17. socks10k-faults — socks10k's 10,000 hosts to 3 sim-s under a fault
               schedule (relay1-50 down over [2.3 s, 2.7 s), 5% loss
               between relay51 and server1 over [2.2 s, 2.8 s), +5 ms
@@ -232,10 +259,10 @@ def gossip_scenario(n_hosts, stop_s=None):
     return scen
 
 
-def run(scen, cfg, device):
+def run(scen, cfg, device, **kw):
     from shadow_tpu_torch.engine.sim import Simulation
     sim = Simulation(scen, engine_cfg=cfg, device=device)
-    rep = sim.run()
+    rep = sim.run(**kw)
     return sim, rep
 
 
@@ -1033,12 +1060,23 @@ def main():
     def want(name):
         return only is None or name in only
 
-    # 2.-6. the timed phases, alone on the card
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return _phases(want, only, canonicalize_state, defs, R, kind,
+                       t_all, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phases(want, only, canonicalize_state, defs, R, kind, t_all, tmp):
+    # 2.-4., 18., 22. and 24. the timed phases, alone on the card
+    import multiprocessing as mp
     from shadow_tpu_torch.__main__ import main as cli
     if want("ping"):
         ping_phase(cli)
-    if want("phold-4096"):
-        phold_phase()
+    timed_phold = phold_phase() if want("phold-4096") else None
     if want("passcope"):
         passcope_phase()
     if want("batch-phold-4096x4"):
@@ -1046,25 +1084,43 @@ def main():
     plain_gossip = gossip_phase() if want("gossip-100k") else None
     if want("gossip-100k-telemetry"):
         gossip_telemetry_phase(plain_gossip)
-    if want("socks10k"):
-        census_phase(socks10k_phase(defs))
-    if want("tgen-1k"):
-        tgen1k_phase(defs)
     if only and "tgen-1k-cpu" in only:
         tgen1k_cpu_phase(canonicalize_state)
 
-    # 17., 7. and 20. (with 20.'s CPU twin) in processes of their own on
-    # the same card, beside 8.-16. and 19.-21.: their passes are
-    # host-bound, and the card serves a few such processes at about the
-    # speed of one each (PERF.md §6)
+    # 5.-7., 13. (with its CPU halves), 17., 20. (with its CPU twin) and
+    # 26.-27. in processes of their own on the same card, beside 8.-12.,
+    # 14.-16., 19., 21. and 28.-29.: their passes are host-bound, and
+    # the card serves a few such processes at about the speed of one
+    # each (PERF.md §6); all in one process the script would run past
+    # its time limit. 5.'s and 6.'s span replays wait at their gates.
+    ctx = mp.get_context("spawn")
+    gate = {n: (ctx.Event(), ctx.Event()) for n in ("socks10k", "tgen-1k")}
+    socks = (Child(_socks10k_child, "socks10k", args=(gate["socks10k"],))
+             if want("socks10k") else None)
+    tgen1k = (Child(_tgen1k_child, "tgen-1k", args=(gate["tgen-1k"],))
+              if want("tgen-1k") else None)
     faults = (Child(_socks10k_faults_child, "socks10k-faults")
               if want("socks10k-faults") else None)
     tgen_cli = CliTgen() if want("cli-tgen") else None
+    tgen = (Child(_tgen_gpu_cpu_child, "tgen-gpu=cpu")
+            if want("tgen-gpu=cpu") else None)
     fleet = Child(_fleet_child, "fleet") if want("fleet") else None
     shim_gpu = shim_cpu = None
     if want("hosted-shim-64"):
         shim_gpu = Child(_shim64_gpu_child, "hosted-shim-64")
         shim_cpu = Child(_shim64_cpu_child, "hosted-shim-64-cpu")
+    single_chain = os.path.join(tmp, "phold-single.jsonl")
+    meshes = None
+    if want("mesh-phold-4096x4") or want("mesh-gossip-100k"):
+        meshes = Child(_mesh_child, "mesh-phold-4096x4/mesh-gossip-100k",
+                       args=(want("mesh-phold-4096x4") and
+                             _single_of(timed_phold), single_chain,
+                             want("mesh-gossip-100k") and
+                             _single_of(plain_gossip), tmp))
+    mesh_tcp_cpu = (Child(_mesh_tcp_cpu_child, "mesh-tcp-gpu=cpu (cpu)",
+                          args=(os.path.join(tmp, "mesh-tcp-cpu.jsonl"),))
+                    if want("mesh-tcp-gpu=cpu") else None)
+    dist_ranks, dist_chain = [], None
     try:
         if want("log1p"):
             log1p_phase(R)
@@ -1076,8 +1132,6 @@ def main():
             tcp_gpu_cpu_phase(canonicalize_state)
         if want("cli-tcp"):
             cli_tcp_phase(cli)
-        if want("tgen-gpu=cpu"):
-            tgen_gpu_cpu_phase(canonicalize_state)
         if want("faults-demo"):
             faults_demo_phase(cli)
         if want("ckpt-gpu=cpu"):
@@ -1088,18 +1142,48 @@ def main():
             telemetry_gpu_cpu_phase(canonicalize_state)
         if want("hosted-gpu=cpu"):
             hosted_gpu_cpu_phase(canonicalize_state)
+        # 29.'s ranks start last, so that they load the host only while
+        # this process would otherwise wait for the children
+        if want("dist-phold"):
+            dist_ranks, dist_chain = dist_phold_start(tmp)
+        if mesh_tcp_cpu:
+            mesh_tcp_phase(mesh_tcp_cpu, tmp)
+        single_phold = None
+        if meshes:
+            (err, single_phold), _ = meshes.result()
+            if err:
+                fail(f"{meshes.name}: {err}")
+        if dist_ranks:
+            dist_phold_finish(dist_ranks, dist_chain,
+                              single_phold, single_chain)
+        for child in (tgen, faults):
+            if child:
+                err, _ = child.result()
+                if err:
+                    fail(f"{child.name}: {err}")
         if tgen_cli:
             tgen_cli.finish()
-        if faults:
-            err, _ = faults.result()
-            if err:
-                fail(f"socks10k-faults: {err}")
         if fleet:
             fleet_finish(fleet)
         if shim_gpu:
             shim64_compare(shim_gpu, shim_cpu, canonicalize_state)
+        # every other process has finished: once both runs have, 5.'s
+        # and then 6.'s span replays, each alone on the card
+        tcp = [(child, gate[child.name]) for child in (socks, tgen1k)
+               if child]
+        for child, (ready, _) in tcp:
+            child.wait_for(ready)
+        for child, (_, go) in tcp:
+            go.set()
+            err, _ = child.result()
+            if err:
+                fail(f"{child.name}: {err}")
     finally:
-        for child in (tgen_cli, faults, fleet, shim_gpu, shim_cpu):
+        for _, go in gate.values():
+            go.set()
+        for child in (socks, tgen1k, tgen_cli, tgen, faults, fleet,
+                      shim_gpu, shim_cpu, meshes, mesh_tcp_cpu,
+                      *dist_ranks):
             if child:
                 child.stop()
 
@@ -1358,6 +1442,7 @@ def phold_phase():
         fail(f"phold-4096 conservation: {s}")
     phase("phold-4096", time.perf_counter() - t0, **rates(rep),
           pkts_sent=s["pkts_sent"], pkts_recv=s["pkts_recv"])
+    return rep
 
 
 def gossip_phase():
@@ -1375,6 +1460,243 @@ def gossip_phase():
           blocks=mined, full_share=round(share, 6),
           mean_prop_delay_us=round(s["mean_rtt_us"], 1))
     return rep
+
+
+# --- multi-device (parallel/shard.py, parallel/dist.py) ---------------------
+
+MESH_SHARDS = 4
+MESH_DIGEST_EVERY = 64
+# mesh-tcp-gpu=cpu: phase 11's 2-hop lossy SOCKS shape cut to 30 sim-s,
+# with two-slot buckets, so bursts overflow them into ST_DEFER_A2A
+MESH_TCP_STOP_S = 30
+MESH_TCP_CAPS = dict(qcap=32, scap=12, obcap=16, incap=24, txqcap=12,
+                     chunk_windows=8, a2acap=2)
+
+
+def shard_figures(rep):
+    """A mesh run's per-shard passes and events, and their imbalance
+    (max over mean; 1.0 is balanced)."""
+    from shadow_tpu_torch.engine import defs
+    hl = -(-rep.stats.shape[0] // rep.shards)
+    ev = rep.stats[:, defs.ST_EVENTS]
+    ev_s = [int(ev[i * hl:(i + 1) * hl].sum()) for i in range(rep.shards)]
+    ps = rep.shard_passes
+
+    def imb(v):
+        return round(max(v) * len(v) / sum(v), 4) if sum(v) else 0.0
+
+    return dict(shard_passes=json.dumps(ps), shard_events=json.dumps(ev_s),
+                pass_imbalance=imb(ps), event_imbalance=imb(ev_s))
+
+
+def _same_runs(name, a, b):
+    """Fail unless two reports agree on stats and windows."""
+    if a.stats.shape != b.stats.shape or not (a.stats == b.stats).all():
+        fail(f"{name}: stats differ from the single run's")
+    if a.windows != b.windows:
+        fail(f"{name}: {b.windows} windows against {a.windows}")
+
+
+def _read(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def mesh_phold_phase(timed, chain, tmp):
+    """26. phold-4096 on four shards of the card: the stats, windows and
+    digest chain (every MESH_DIGEST_EVERY windows, to `chain`) of an
+    untimed single run, whose stats and windows equal phase 3's
+    (`timed`, None when phase 3 did not run) -> that single run."""
+    from shadow_tpu_torch.parallel.shard import make_mesh
+    _, single = run(phold_scenario(4096, 5), phold_cfg(4096), "cuda",
+                    digest=chain, digest_every=MESH_DIGEST_EVERY)
+    if timed is not None:
+        _same_runs("phold-4096 with a chain", timed, single)
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "phold-mesh.jsonl")
+    _, rep = run(phold_scenario(4096, 5), phold_cfg(4096), "cuda",
+                 mesh=make_mesh(MESH_SHARDS, "cuda"), digest=path,
+                 digest_every=MESH_DIGEST_EVERY)
+    if rep.shards != MESH_SHARDS or not rep.device.startswith("cuda"):
+        fail(f"mesh-phold-4096x4: shards={rep.shards} on {rep.device}")
+    _same_runs("mesh-phold-4096x4", single, rep)
+    records = _read(path).splitlines()
+    if records != _read(chain).splitlines():
+        fail("mesh-phold-4096x4: digest chain differs from the single "
+             "run's")
+    phase("mesh-phold-4096x4", time.perf_counter() - t0, **rates(rep),
+          single_wall_s=round(single.wall_seconds, 3),
+          chain_records=len(records), chains_equal=True,
+          **shard_figures(rep))
+    return single
+
+
+def _single_of(rep):
+    """What phases 26, 27 and 29 read of a single run (None: none was
+    run), to pass between processes."""
+    import types
+    return rep and types.SimpleNamespace(stats=rep.stats, windows=rep.windows,
+                                         wall_seconds=rep.wall_seconds)
+
+
+def _mesh_child(conn, phold_timed, chain, gossip_single, tmp):
+    """A child process: phases 26 and 27, each run when its single run's
+    figures are given (False: not wanted) -> (None, 26's single run), or
+    (the failure, None)."""
+    try:
+        single = None
+        if phold_timed is not False:
+            single = _single_of(mesh_phold_phase(phold_timed, chain, tmp))
+        if gossip_single is not False:
+            mesh_gossip_phase(gossip_single)
+        conn.send((None, single))
+    except BaseException as e:
+        conn.send((f"{type(e).__name__}: {e}", None))
+        raise
+
+
+def mesh_gossip_phase(single):
+    """27. examples/gossip-100k.xml as written on four shards of the card:
+    the plain gossip-100k run's stats and windows."""
+    from shadow_tpu_torch.parallel.shard import make_mesh
+    if single is None:          # --phases without gossip-100k
+        _, single = run(gossip_scenario(100_000), gossip_cfg(100_000),
+                        "cuda")
+    t0 = time.perf_counter()
+    _, rep = run(gossip_scenario(100_000), gossip_cfg(100_000), "cuda",
+                 mesh=make_mesh(MESH_SHARDS, "cuda"))
+    if rep.shards != MESH_SHARDS or not rep.device.startswith("cuda"):
+        fail(f"mesh-gossip-100k: shards={rep.shards} on {rep.device}")
+    _same_runs("mesh-gossip-100k", single, rep)
+    phase("mesh-gossip-100k", time.perf_counter() - t0,
+          hosts=rep.stats.shape[0], **rates(rep),
+          single_wall_s=round(single.wall_seconds, 3), stats_equal=True,
+          **shard_figures(rep))
+
+
+def mesh_tcp_run(device, chain):
+    """mesh-tcp-gpu=cpu's run on `device`: four shards -> (stats, windows,
+    summary, shard passes)."""
+    from shadow_tpu_torch.engine.state import EngineConfig
+    from shadow_tpu_torch.parallel.shard import make_mesh
+    scen = socks_scenario(0.02, 2, MESH_TCP_STOP_S)
+    cfg = EngineConfig(num_hosts=scen.total_hosts(), **MESH_TCP_CAPS)
+    _, rep = run(scen, cfg, device, mesh=make_mesh(MESH_SHARDS, device),
+                 digest=chain, digest_every=8)
+    return rep.stats, rep.windows, rep.summary(), rep.shard_passes
+
+
+def _mesh_tcp_cpu_child(conn, chain):
+    """A child process: mesh-tcp-gpu=cpu's CPU half -> (None, run), or
+    the failure."""
+    try:
+        torch.set_num_threads(2)
+        conn.send((None, mesh_tcp_run("cpu", chain)))
+    except BaseException as e:
+        conn.send((f"{type(e).__name__}: {e}", None))
+        raise
+
+
+def mesh_tcp_phase(child, tmp):
+    """28. a lossy 2-hop SOCKS shape on four shards with two-slot
+    buckets: bursts defer into ST_DEFER_A2A, and the card's mesh gives
+    the CPU mesh's stats, windows and digest chain."""
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "mesh-tcp-cuda.jsonl")
+    gst, gwin, s, ps = mesh_tcp_run("cuda", path)
+    (err, cpu), waited = child.result()
+    if err:
+        fail(f"mesh-tcp-gpu=cpu (cpu): {err}")
+    cst, cwin, cs, _ = cpu
+    if not (gst == cst).all() or gwin != cwin:
+        fail("mesh-tcp-gpu=cpu: stats or windows differ between cuda and "
+             "cpu")
+    if _read(path) != _read(os.path.join(tmp, "mesh-tcp-cpu.jsonl")):
+        fail("mesh-tcp-gpu=cpu: digest chains differ between cuda and cpu")
+    if not (s["defer_a2a"] > 0 and s["transfers_done"] and
+            s["retransmits"]):
+        fail(f"mesh-tcp-gpu=cpu: no bucket overflow, transfer or loss "
+             f"recovery: {s}")
+    phase("mesh-tcp-gpu=cpu", time.perf_counter() - t0,
+          waited_s=round(waited, 3), events=s["events"], windows=gwin,
+          defer_a2a=s["defer_a2a"], transfers=s["transfers_done"],
+          retransmits=s["retransmits"], cuda_wall=round(s["wall_seconds"],
+                                                        3),
+          cpu_wall=round(cs["wall_seconds"], 3), shard_passes=json.dumps(ps),
+          chains_equal=True)
+
+
+def _dist_phold_child(conn, coordinator, rank, backend, chain):
+    """One rank of dist-phold: phold-4096 on two shards of a four-shard
+    mesh over ``parallel.dist`` on the card -> (None, figures), rank 0
+    with the stats, or the failure."""
+    from shadow_tpu_torch.parallel import dist
+    try:
+        t0 = time.perf_counter()
+        dist.init(coordinator, 2, rank, local_shards=2, backend=backend,
+                  device="cuda")
+        mesh = dist.global_mesh()
+        _, rep = run(phold_scenario(4096, 5), phold_cfg(4096), "cuda",
+                     mesh=mesh, digest=chain,
+                     digest_every=MESH_DIGEST_EVERY)
+        out = dict(rank=rank, backend=rep.mesh["backend"],
+                   shards=rep.shards, device=rep.device,
+                   windows=rep.windows, events=rep.events,
+                   run_wall_s=round(rep.wall_seconds, 3),
+                   staged_bytes=rep.mesh["host_staged_bytes"],
+                   shard_passes=rep.shard_passes,
+                   wall=time.perf_counter() - t0)
+        if rank == 0:
+            out["stats"] = rep.stats
+        dist.shutdown()
+        conn.send((None, out))
+    except BaseException as e:
+        conn.send((f"{type(e).__name__}: {e}", None))
+        raise
+
+
+def dist_phold_start(tmp):
+    """29. dist-phold's two ranks, each a process of its own on the card
+    (gloo with fewer than two cards: NCCL refuses two ranks on one)."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    chain = os.path.join(tmp, "phold-dist.jsonl")
+    return [Child(_dist_phold_child, f"dist-phold rank {r}",
+                  args=(f"127.0.0.1:{port}", r, backend, chain))
+            for r in range(2)], chain
+
+
+def dist_phold_finish(ranks, chain, single, single_chain):
+    """29. dist-phold: the ranks' stats and chain equal phase 26's
+    untimed single run and its chain (run here when 26 did not)."""
+    outs = []
+    for child in ranks:
+        (err, out), _ = child.result()
+        if err:
+            fail(f"{child.name}: {err}")
+        outs.append(out)
+    if single is None:
+        _, single = run(phold_scenario(4096, 5), phold_cfg(4096), "cuda",
+                        digest=single_chain,
+                        digest_every=MESH_DIGEST_EVERY)
+    r0 = outs[0]
+    if r0["shards"] != MESH_SHARDS or not r0["device"].startswith("cuda"):
+        fail(f"dist-phold: shards={r0['shards']} on {r0['device']}")
+    if not (r0["stats"] == single.stats).all() or \
+            r0["windows"] != single.windows:
+        fail("dist-phold: stats or windows differ from the single run's")
+    if _read(chain) != _read(single_chain):
+        fail("dist-phold: digest chain differs from the single run's")
+    phase("dist-phold", max(o["wall"] for o in outs),
+          backend=r0["backend"], processes=2, shards=r0["shards"],
+          windows=r0["windows"], events=r0["events"],
+          run_wall_s=json.dumps([o["run_wall_s"] for o in outs]),
+          shard_passes=json.dumps(r0["shard_passes"]),
+          host_staged_bytes=json.dumps([o["staged_bytes"] for o in outs]),
+          chains_equal=True)
 
 
 def arrays(sim, rep):
@@ -1436,8 +1758,9 @@ def cbrt_phase():
     phase("cbrt", time.perf_counter() - t0, inputs=x.numel(), mismatches=0)
 
 
-def socks10k_phase(defs):
-    """5. socks10k through Simulation on the card."""
+def socks10k_phase(defs, gate=None):
+    """5. socks10k through Simulation on the card; with a `gate`, its
+    span replays only once the gate opens (``_await_alone``)."""
     t0 = time.perf_counter()
     sim = socks10k_sim()
     seen = [0]
@@ -1469,8 +1792,9 @@ def socks10k_phase(defs):
     if s["drop_q"] != 0:
         fail(f"socks10k: event-queue drops {s['drop_q']} (engine fault)")
     print(f"  socks10k run: {json.dumps(rates(rep) | s)}", flush=True)
+    wall, waited = _await_alone(t0, gate)
     span = span.report()
-    phase("socks10k", time.perf_counter() - t0, **rates(rep),
+    phase("socks10k", wall, span_waited_s=waited, **rates(rep),
           stop_sim_s=SOCKS_STOP_S,
           launches_per_pass=span["launches_per_pass"],
           span=json.dumps(span, separators=(",", ":")),
@@ -1534,8 +1858,9 @@ def cli_tcp_phase(cli):
           **{f"{k}_events_xfers_windows": v for k, v in out.items()})
 
 
-def tgen1k_phase(defs):
-    """6. tgen-1k through Simulation on the card."""
+def tgen1k_phase(defs, gate=None):
+    """6. tgen-1k through Simulation on the card; with a `gate`, its span
+    replays only once the gate opens (``_await_alone``)."""
     from shadow_tpu_torch.baseline_configs import bulk1k
     t0 = time.perf_counter()
     sim = bulk1k(1000, stop=TGEN_STOP_S, device="cuda", runahead_ms=10)
@@ -1566,8 +1891,9 @@ def tgen1k_phase(defs):
              f"walk branches: {out}")
     if not (gets and puts):
         fail(f"tgen-1k: GETs or PUTs never completed: {out}")
+    wall, waited = _await_alone(t0, gate)
     span = span.report()
-    phase("tgen-1k", time.perf_counter() - t0, **out,
+    phase("tgen-1k", wall, span_waited_s=waited, **out,
           launches_per_pass=span["launches_per_pass"],
           span=json.dumps(span, separators=(",", ":")))
 
@@ -2158,14 +2484,14 @@ class Child:
     """A phase run by a spawned child process on the same card while the
     main process runs others: its passes are host-bound, and the card
     serves a few such processes at about the speed of one (PERF.md §6).
-    `target(conn)` sends one result through `conn`."""
+    `target(conn, *args)` sends one result through `conn`."""
 
-    def __init__(self, target, name):
+    def __init__(self, target, name, args=()):
         import multiprocessing as mp
         ctx = mp.get_context("spawn")
         self.name = name
         self.conn, child = ctx.Pipe(duplex=False)
-        self.proc = ctx.Process(target=target, args=(child,))
+        self.proc = ctx.Process(target=target, args=(child,) + tuple(args))
         self.proc.start()
 
     def result(self):
@@ -2176,6 +2502,16 @@ class Child:
                 fail(f"{self.name}: its process exited "
                      f"{self.proc.exitcode} with no result")
         return self.conn.recv(), time.perf_counter() - t0
+
+    def wait_for(self, event):
+        """Wait until the child sets `event` or sends its result (a
+        failure before the event)."""
+        while not event.wait(1):
+            if self.conn.poll(0):
+                return
+            if not self.proc.is_alive():
+                fail(f"{self.name}: its process exited "
+                     f"{self.proc.exitcode} with no result")
 
     def stop(self):
         if self.proc.is_alive():
@@ -2205,6 +2541,52 @@ class CliTgen(Child):
               transfers=s["transfers_done"], drop_net=s["drop_net"],
               retransmits=s["retransmits"],
               per_host=json.dumps(xfer, separators=(",", ":")))
+
+
+def _await_alone(t0, gate):
+    """The phase's wall from `t0`; then, given a `gate` (two Events), set
+    its first (the run is done) and wait for its second (the card is
+    free) -> (wall, seconds waited)."""
+    wall = time.perf_counter() - t0
+    if gate is None:
+        return wall, 0.0
+    ready, go = gate
+    ready.set()
+    go.wait()
+    return wall, round(time.perf_counter() - t0 - wall, 3)
+
+
+def _socks10k_child(conn, gate):
+    """A child process: phases 5 and 23 -> None, or the failure."""
+    from shadow_tpu_torch.engine import defs
+    try:
+        census_phase(socks10k_phase(defs, gate))
+        conn.send(None)
+    except BaseException as e:
+        conn.send(f"{type(e).__name__}: {e}")
+        raise
+
+
+def _tgen1k_child(conn, gate):
+    """A child process: phase 6 -> None, or the failure."""
+    from shadow_tpu_torch.engine import defs
+    try:
+        tgen1k_phase(defs, gate)
+        conn.send(None)
+    except BaseException as e:
+        conn.send(f"{type(e).__name__}: {e}")
+        raise
+
+
+def _tgen_gpu_cpu_child(conn):
+    """A child process: phase 13 -> None, or the failure."""
+    from shadow_tpu_torch.engine.window import canonicalize_state
+    try:
+        tgen_gpu_cpu_phase(canonicalize_state)
+        conn.send(None)
+    except BaseException as e:
+        conn.send(f"{type(e).__name__}: {e}")
+        raise
 
 
 def _socks10k_faults_child(conn):

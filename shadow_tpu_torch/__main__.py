@@ -15,7 +15,7 @@
         [--checkpoint PATH --checkpoint-every SEC [--checkpoint-keep N]]
         [--resume PATH|latest]
         [--until-complete [--max-retries N] [--retry-backoff SEC]]
-        [--passcope [DIR]] [--shape-fingerprint]
+        [--passcope [DIR]] [--shape-fingerprint] [--workers N]
     python -m shadow_tpu_torch batch CONFIG... [--seeds S1,S2,...] ...
     python -m shadow_tpu_torch fleet submit|run|status QUEUE ...
 
@@ -36,9 +36,11 @@ re-runs ``python -m shadow_tpu_torch`` in a child process with
 ``--resume latest`` after each crash, and SIGTERM under ``--checkpoint``
 saves a snapshot at the next chunk boundary and exits 75.
 ``--passcope`` profiles the first chunks and prints the per-pass table
-(obs.passcope) with the occupancy block; ``--shape-fingerprint`` prints
-the scenario's shape identity as one JSON line and exits without
-running. ``batch`` runs same-shape scenarios as lanes of one program
+(obs.passcope) with the occupancy block; ``--workers N`` block-shards
+the hosts over a mesh of N shards on the run's device (the reference's
+worker-thread knob; parallel.shard, same results bit for bit);
+``--shape-fingerprint`` prints the scenario's shape identity as one
+JSON line and exits without running. ``batch`` runs same-shape scenarios as lanes of one program
 (serving.batch), ``fleet`` queues and supervises sweeps (fleet.cli).
 ``--aot-cache`` and ``--prewarm`` are refused (exit 2): eager torch has
 no executable to cache.
@@ -148,6 +150,11 @@ def main(argv=None) -> int:
                         "fewer windows, as in the reference")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
+    p.add_argument("--workers", type=int, default=0, metavar="N",
+                   help="shard the hosts over a mesh of N shards on the "
+                        "run's device (cards round-robin when --device "
+                        "is cuda with no index; 0 = one device; the "
+                        "reference's worker-thread knob)")
     p.add_argument("--summary-json", action="store_true",
                    help="print the final summary as one JSON line")
     p.add_argument("--verbose", action="store_true",
@@ -417,11 +424,17 @@ def main(argv=None) -> int:
         chunk = sim.effective_chunk(
             (args.digest_every or DG.DEFAULT_EVERY) if args.digest else 0)
         fp = LG.fingerprint_of(sim.cfg, engine=LG.ENGINE)
+        # w<N> folds the mesh size in: a sharded run is another shape
         print(json.dumps({"shape_fingerprint": fp,
-                          "shape": f"c{chunk}.w0.{fp}", "chunk": chunk,
+                          "shape": f"c{chunk}.w{args.workers}.{fp}",
+                          "chunk": chunk,
                           "hosts": scenario.total_hosts(),
-                          "workers": 0}))
+                          "workers": args.workers}))
         return 0
+    mesh = None
+    if args.workers:
+        from .parallel.shard import make_mesh
+        mesh = make_mesh(args.workers, args.device)
     # --perf collects the spans itself (in memory without --trace) and
     # reads them after the run
     own_perf_tr = False
@@ -448,7 +461,8 @@ def main(argv=None) -> int:
                          logger=logger, pcap_dir=args.pcap_dir,
                          trace=None if own_perf_tr else args.trace,
                          metrics=args.metrics, netscope=args.netscope,
-                         passcope=args.passcope, verbose=args.verbose)
+                         passcope=args.passcope, verbose=args.verbose,
+                         mesh=mesh)
     except Preempted as pe:
         from .engine.supervisor import EXIT_PREEMPTED
         sys.stderr.write(f"shadow_tpu_torch: preempted: {pe} — resume "
@@ -480,6 +494,9 @@ def main(argv=None) -> int:
     print(f"done: {s['events']} events in {s['wall_seconds']:.2f}s wall "
           f"({s['events_per_sec']:.0f} ev/s, speedup x{s['speedup']:.2f}) "
           f"on {s['device']}")
+    if report.shard_passes:
+        print(f"shards: {report.shards} (drain passes per shard: "
+              f"{report.shard_passes})")
     for row in report.capacity_report():
         print(f"capacity {row['array']}: peak {row['peak']}"
               f"/{row['capacity']}, overflow {row['overflow']}")
@@ -488,14 +505,15 @@ def main(argv=None) -> int:
     return 0
 
 
-def port_fingerprint(cfg, scenario, runahead) -> str:
+def port_fingerprint(cfg, scenario, runahead, workers: int = 0) -> str:
     """The ledger fingerprint of a port run: the reference CLI's
-    arguments plus ``engine="torch"``, so the port's entries never share
-    a trajectory with the reference's in tools/perf_regress.py."""
+    arguments (the mesh size among them) plus ``engine="torch"``, so the
+    port's entries never share a trajectory with the reference's in
+    tools/perf_regress.py."""
     from .obs import ledger as LG
     return LG.fingerprint_of(cfg, seed=scenario.seed,
                              stop_ns=int(scenario.stop_time),
-                             runahead=runahead or "", workers=0,
+                             runahead=runahead or "", workers=workers,
                              engine=LG.ENGINE)
 
 
@@ -516,7 +534,7 @@ def _perf_report(args, sim, scenario, report, tr, logger):
              os.path.splitext(os.path.basename(args.config))[0])
     entry = LG.entry_from_report(
         label,
-        port_fingerprint(sim.cfg, scenario, args.runahead),
+        port_fingerprint(sim.cfg, scenario, args.runahead, args.workers),
         sim.device.type, report, att, cfg=sim.cfg)
     path = LG.append(entry, args.perf or None)
     if path:

@@ -42,7 +42,8 @@ from . import defs
 from .defs import EV_APP, WAKE_START
 from . import checkpoint as ckpt
 from .faults import CrashHook, FaultInjector, compile_faults
-from .state import EngineConfig, HostParams, alloc_hosts, make_shared
+from .state import (EngineConfig, HostParams, Hosts, alloc_hosts,
+                    make_shared)
 from .window import next_wakeup, run_windows
 
 
@@ -105,6 +106,12 @@ class SimReport:
     #   (obs.passcope.occupancy of the dense pass mix), always on
     batch: dict = field(default_factory=dict)  # batch lanes
     #   (serving.batch): {"lanes", "stacked_passes"}
+    shards: int = 1            # mesh size (1: one device)
+    shard_passes: list = field(default_factory=list)  # a mesh run's
+    #   drain passes per shard; ``passes`` is their sum
+    mesh: dict = field(default_factory=dict)  # a mesh run: processes,
+    #   the torch.distributed backend (None in one process) and the
+    #   bytes its collectives staged through host memory
 
     def total(self, stat: int) -> int:
         return int(self.stats[:, stat].sum())
@@ -153,7 +160,8 @@ class SimReport:
         utilization clamped at 1, so it never reads below zero. The
         reference's rung ladders count lanes differently, so neither
         is a parity quantity."""
-        lanes = self.passes * len(self.host_names)
+        # a mesh shard's pass steps its own block of rows
+        lanes = self.passes * -(-len(self.host_names) // self.shards)
         return 1.0 - self.events / lanes if lanes else 0.0
 
     def summary(self) -> dict:
@@ -189,6 +197,7 @@ class SimReport:
             "device": self.device,
             "passes": self.passes,
             "waste_frac": self.waste_frac,
+            "shards": self.shards,
         }
         if self.memory:
             s["mem_peak_bytes"] = int(self.memory.get("peak_bytes", 0))
@@ -484,6 +493,7 @@ class Simulation:
         self.hosts.eq_next.copy_(t(eq_time.min(axis=1), torch.int64))
         self._ran = False
         self._pscope = None
+        self._devices = None    # a mesh run's devices
 
     def effective_chunk(self, digest_every: int = 0) -> int:
         """Windows per run_windows call: 1 under hosted apps (the CPU
@@ -502,10 +512,24 @@ class Simulation:
             heartbeat_s: float = 0, logger=None, pcap_dir: str = None,
             trace: str = None, metrics: str = None,
             netscope: str = None, passcope: str = None,
-            verbose: bool = False) -> SimReport:
+            verbose: bool = False, mesh=None) -> SimReport:
         """Run to the stop time. The state tensors are updated in place;
-        the final state stays in ``self.hosts``. `clock` is passed to
-        ``window.run_windows`` (per-phase wall split).
+        the final state stays in ``self.hosts`` (``self.final_hosts``).
+        `clock` is passed to ``window.run_windows`` (per-phase wall
+        split).
+
+        `mesh` (``parallel.shard.make_mesh`` or
+        ``parallel.dist.global_mesh``) block-shards the hosts over its
+        shards, with the same results bit for bit: the host count is
+        padded to a multiple of the mesh size with inert rows, cut off
+        again before stats, digests and checkpoints, and the features
+        that read the whole state (digest, checkpoints, faults, hosted
+        apps, pcap, tracker, netscope) gather it at chunk boundaries and
+        write back what they change. ``self.final_hosts`` is the
+        gathered state. On a multi-process mesh every process runs the
+        same loop (the gathers are collectives), only process 0 writes
+        files, and hosted apps and faults are refused, as in the
+        reference.
 
         `checkpoint_path` + `checkpoint_every_s` write snapshots into a
         crash-safe rotating store (``engine.checkpoint``; the last
@@ -553,10 +577,13 @@ class Simulation:
         from ..obs import metrics as MT
         from ..obs import trace as TR
         own_dg = own_tr = own_mt = False
+        # on a multi-process mesh only process 0 writes files
+        writer = (mesh is None or not mesh.comm.multiprocess
+                  or mesh.comm.rank == 0)
         if digest is not None:
             if not DG.ENABLED:
                 DG.install(digest, every=digest_every or DG.DEFAULT_EVERY,
-                           context=digest_context)
+                           context=digest_context, writer=writer)
                 own_dg = True
             else:
                 sys.stderr.write(
@@ -564,10 +591,12 @@ class Simulation:
                     "already installed process-wide; the path passed to "
                     "run() is ignored\n")
         if trace is not None and not TR.ENABLED:
-            TR.install(trace)
+            TR.install(trace if writer else None)
             own_tr = True
         if metrics is not None and not MT.ENABLED:
-            MT.install(metrics, jsonl_path=metrics + ".chunks.jsonl")
+            MT.install(metrics if writer else None,
+                       jsonl_path=(metrics + ".chunks.jsonl" if writer
+                                   else None))
             own_mt = True
         if (trace is not None and not own_tr) or (
                 metrics is not None and not own_mt):
@@ -580,7 +609,8 @@ class Simulation:
                                   checkpoint_every_s, checkpoint_keep,
                                   resume_from, resume_unchecked,
                                   digest_rewind, heartbeat_s, logger,
-                                  pcap_dir, netscope, passcope, verbose)
+                                  pcap_dir, netscope, passcope, verbose,
+                                  mesh, writer)
         finally:
             if self._pscope is not None:
                 # a run that raised must not leave the labels on
@@ -599,7 +629,8 @@ class Simulation:
     def _run_impl(self, clock, checkpoint_path, checkpoint_every_s,
                   checkpoint_keep, resume_from, resume_unchecked,
                   digest_rewind, heartbeat_s, logger, pcap_dir,
-                  netscope, passcope, verbose) -> SimReport:
+                  netscope, passcope, verbose, mesh=None,
+                  writer=True) -> SimReport:
         from ..obs import digest as DG
         from ..obs import memscope as MS
         from ..obs import metrics as MT
@@ -615,6 +646,20 @@ class Simulation:
         st, hp, sh, cfg = self.hosts, self.hp, self.sh, self.cfg
         H = cfg.num_hosts
         inj = self.injector
+        if mesh is not None:
+            from ..parallel import shard as SH
+        multiproc = mesh is not None and mesh.comm.multiprocess
+        if multiproc:
+            # the reference's messages, with the ROADMAP item
+            if self.hosting is not None:
+                raise NotImplementedError(
+                    "hosted apps + multi-process mesh not supported "
+                    "(ROADMAP A11b)")
+            if inj is not None:
+                raise NotImplementedError(
+                    "fault injection + multi-process mesh not supported "
+                    "(host-fault surgery needs addressable state; "
+                    "ROADMAP A11b)")
         narrow = not cfg.wide_state
         durability = {"saves": [], "load_s": None}
         if checkpoint_path and not checkpoint_every_s:
@@ -633,19 +678,23 @@ class Simulation:
                               logger)
         # with the knob on, records accumulate in memory; the path adds
         # the JSONL stream
-        nsrec = NSC.NetScope(netscope) if cfg.netscope else None
+        nsrec = (NSC.NetScope(netscope if writer else None)
+                 if cfg.netscope else None)
         pcap = None
-        if cfg.tracecap and pcap_dir is not None:
+        pcap_run = bool(cfg.tracecap) and pcap_dir is not None
+        if pcap_run and writer:
             from ..obs.pcap import PcapWriter
             pcap = PcapWriter(pcap_dir, self.host_names,
                               self.dns.ip_array(H),
                               np.flatnonzero(hp.pcap_on.cpu().numpy()))
-        wm = MS.Watermark(self.device)
+        wm = MS.Watermark(self.device if mesh is None
+                          else SH.mesh_local_devices(mesh))
         pc_dir = (passcope if passcope is not None
                   else os.environ.get("SHADOW_TPU_PASSCOPE"))
         if pc_dir == "":
             pc_dir = "passcope_trace"
-        pscope = PC.Capture(pc_dir, self.device) if pc_dir else None
+        pscope = (PC.Capture(pc_dir, self.device) if pc_dir and writer
+                  else None)
         self._pscope = pscope
         # the fleet's liveness signal: under a fleet worker
         # (SHADOW_TPU_FLEET_RUN_DIR) each chunk touches
@@ -668,6 +717,7 @@ class Simulation:
             dg.write_manifest(DG.build_manifest(
                 self.scenario, cfg, self.seed, sh, self.host_names, dg,
                 self.device, checkpoint_path=checkpoint_path,
+                shards=1 if mesh is None else mesh.size,
                 pcap=pcap_dir is not None, faults=inj is not None,
                 hosted=hosting is not None))
         chunk = self.effective_chunk(dg.every if dg is not None else 0)
@@ -709,10 +759,31 @@ class Simulation:
             self._sync()
             durability["load_s"] = _time.perf_counter() - t0
 
+        # a mesh run: the shards take the (resumed) state over
+        ss = None
+        lane_rows = H           # the rows one drain pass steps
+        if mesh is not None:
+            hosts_p, hp_p, sh, cfg_p = self._pad_for_mesh(mesh.size, st,
+                                                          hp, sh)
+            ss = SH.device_put_sharded(hosts_p, hp_p, sh, cfg_p, mesh)
+            del hosts_p
+            st = self.hosts = None
+            lane_rows = ss.lcfg.num_hosts
+            self._devices = SH.mesh_local_devices(mesh)
+        shard_passes = [0] * (1 if mesh is None else mesh.size)
+
+        def whole(names=None):
+            """The state's real rows: the single run's Hosts, or the
+            mesh's gathered (just the fields `names`, when given; a
+            collective on a multi-process mesh)."""
+            if ss is None:
+                return st
+            return SH.gather(ss, H, names=names)
+
         def dg_record(kind, window, sim_ns):
             if TR.ENABLED:
                 d0 = TR.TRACER.now()
-            dg.record(st, H, window, sim_ns, kind,
+            dg.record(whole(), H, window, sim_ns, kind,
                       hosted=(hosting.digest_state()
                               if hosting is not None else None))
             if TR.ENABLED:
@@ -741,8 +812,11 @@ class Simulation:
             # stamps the fault schedule and chain positions, so records
             # and faults after this save are re-produced on resume
             t0 = _time.perf_counter()
+            hosts = whole()
+            if not writer:
+                return
             path = store.save(
-                st, ws_now, we, total_windows, fingerprint,
+                hosts, ws_now, we, total_windows, fingerprint,
                 fault_idx=inj.i if inj is not None else -1,
                 digest_records=len(dg.records) if dg is not None else -1,
                 digest_chain=dg.chain_hex if dg is not None else None,
@@ -754,10 +828,13 @@ class Simulation:
                  "wall_s": _time.perf_counter() - t0, "sim_ns": ws_now})
 
         def events_now():
+            if ss is not None:
+                return sum(v[0] for v in SH.scalars(
+                    ss, lambda s: s.stats[:, defs.ST_EVENTS].sum().view(1)))
             return int(st.stats[:, defs.ST_EVENTS].sum())
 
         def waste_now(events):
-            lanes = passes * H
+            lanes = passes * lane_rows
             return 1.0 - events / lanes if lanes else 0.0
 
         # a resumed run's restored stats already hold the earlier events
@@ -776,7 +853,10 @@ class Simulation:
                         f.write(f"{ws}\n")
                 except OSError:
                     pass        # liveness is best-effort, never fatal
-            if _PREEMPT.is_set():
+            # a multi-process mesh ignores the flag: signals reach each
+            # process on its own, and a one-sided stop would wedge the
+            # collectives (preempt those with SIGKILL and snapshots)
+            if _PREEMPT.is_set() and not multiproc:
                 saved = store is not None
                 if saved:
                     save_snapshot(ws)
@@ -793,8 +873,17 @@ class Simulation:
             if obs_on:
                 ws0 = ws
                 c0 = _time.perf_counter_ns()
-            ws, we, n, npass = run_windows(st, hp, sh_seg, ws, we, cfg,
-                                           chunk, clock=clock)
+            if ss is None:
+                ws, we, n, npass = run_windows(st, hp, sh_seg, ws, we, cfg,
+                                               chunk, clock=clock)
+            else:
+                ws, we, n, sp = SH.run_windows_sharded(
+                    ss, ws, we, chunk, clock=clock,
+                    stop=int(sh_seg.stop_time))
+                sp = [v[0] for v in mesh.comm.scalars(
+                    [torch.tensor([p], device=d) for p, d in zip(sp, mesh)])]
+                shard_passes = [a + b for a, b in zip(shard_passes, sp)]
+                npass = sum(sp)
             total_windows += n
             passes += npass
             if pscope is not None:
@@ -803,33 +892,43 @@ class Simulation:
             if hosting is not None:
                 if TR.ENABLED:
                     h0 = TR.TRACER.now()
-                hosting.step(st, hp, sh, min(ws, stop_ns))
-                dropped = int(st.hw_drop.sum())
+                # on a mesh the CPU tier works on the gathered state,
+                # written back after the step
+                hst = st if ss is None else SH.gather(ss)
+                hosting.step(hst, hp if ss is None else ss.hp_all, sh,
+                             min(ws, stop_ns))
+                if ss is not None:
+                    SH.put_hosts(ss, hst)
+                dropped = int(hst.hw_drop.sum())
                 if dropped:
                     raise RuntimeError(
                         f"{dropped} hosted-app wakes lost to wake-ring "
                         "overflow; raise EngineConfig.hostedcap")
                 # the ops may have queued events before the window the
                 # engine computed: re-derive it
-                ws, we = window_after(next_wakeup(st))
+                ws, we = window_after(next_wakeup(hst))
                 if TR.ENABLED:
                     TR.TRACER.complete("hosting.step", h0)
             now_ns = min(ws, stop_ns)
-            if pcap is not None:
+            if pcap_run:
                 if TR.ENABLED:
                     p0 = TR.TRACER.now()
-                pcap.drain(st.tr_time.cpu().numpy(),
-                           st.tr_pkt.cpu().numpy(),
-                           st.tr_cnt.cpu().numpy())
-                st.tr_cnt.zero_()
+                tr = whole(("tr_time", "tr_pkt", "tr_cnt"))
+                if pcap is not None:
+                    pcap.drain(tr.tr_time.cpu().numpy(),
+                               tr.tr_pkt.cpu().numpy(),
+                               tr.tr_cnt.cpu().numpy())
+                for s_ in ([st] if ss is None else ss.hosts):
+                    s_.tr_cnt.zero_()
                 if TR.ENABLED:
                     TR.TRACER.complete("pcap.drain", p0)
             if tracker is not None and tracker.due(now_ns):
                 if TR.ENABLED:
                     t0 = TR.TRACER.now()
-                stats_np = st.stats.cpu().numpy()
+                stats_np = whole(("stats",)).stats.cpu().numpy()
                 tracker.maybe_heartbeat(
-                    now_ns, stats_np, socks=socket_columns(st),
+                    now_ns, stats_np, socks=socket_columns(
+                        whole(SOCKET_FIELDS)),
                     hosted_rss=(hosting.child_rss()
                                 if hosting is not None else None),
                     dev_peak=wm.peak_bytes,
@@ -842,10 +941,17 @@ class Simulation:
                     n0 = TR.TRACER.now()
                 # the host sums over hosts anyway: summing on the device
                 # moves [K, B] instead of [H, K, B] (exact: integers)
-                nsrec.sample(total_windows, now_ns,
-                             st.ns_hist.sum(0).cpu().numpy(),
-                             st.stats.cpu().numpy(),
-                             conns=int(st.sk_used.sum()))
+                if ss is None:
+                    nsrec.sample(total_windows, now_ns,
+                                 st.ns_hist.sum(0).cpu().numpy(),
+                                 st.stats.cpu().numpy(),
+                                 conns=int(st.sk_used.sum()))
+                else:
+                    nsrec.sample(total_windows, now_ns,
+                                 _mesh_hist(ss).cpu().numpy(),
+                                 whole(("stats",)).stats.cpu().numpy(),
+                                 conns=sum(v[0] for v in SH.scalars(
+                                     ss, lambda s: s.sk_used.sum().view(1))))
                 if TR.ENABLED:
                     TR.TRACER.complete("netscope.sample", n0)
             if store is not None and ws >= ckpt_at:
@@ -887,6 +993,8 @@ class Simulation:
                             round(chunk_wall / chunk_sim, 6)
                             if chunk_sim else None),
                         waste_frac=waste_now(ev_total))
+                    if ss is not None:
+                        _shard_gauges(reg, ss)
                 chunk_i += 1
             if dg is not None and dg.due(total_windows):
                 dg_record("cadence", total_windows, now_ns)
@@ -896,10 +1004,16 @@ class Simulation:
             if nf is not None and nf < stop_ns and ws >= nf:
                 if TR.ENABLED:
                     f0 = TR.TRACER.now()
-                sh = inj.apply_batch(st, sh)
+                # on a mesh the surgery works on the gathered state,
+                # written back with the rebuilt Shared
+                fst = st if ss is None else SH.gather(ss)
+                sh = inj.apply_batch(fst, sh)
+                if ss is not None:
+                    SH.put_hosts(ss, fst)
+                    SH.put_shared(ss, sh)
                 # a kill's RSTs and a restart's starts may open a window
                 # before the old one
-                ws, we = window_after(next_wakeup(st))
+                ws, we = window_after(next_wakeup(fst))
                 if TR.ENABLED:
                     TR.TRACER.complete("faults.apply", f0)
                 if dg is not None:
@@ -919,6 +1033,10 @@ class Simulation:
             pcap.close()
         if TR.ENABLED:
             f0 = TR.TRACER.now()
+        if ss is not None:
+            st = whole()
+            shard_events = [v[0] for v in SH.scalars(
+                ss, lambda s: s.stats[:, defs.ST_EVENTS].sum().view(1))]
         stats = st.stats.cpu().numpy()
         self._sync()
         wall = _time.perf_counter() - wall0
@@ -939,8 +1057,11 @@ class Simulation:
         memory = wm.snapshot()
         census = MS.state_census(cfg, hosts=st, hp=hp, sh=self.sh)
         memory.update(MS.census_totals(census), census=census)
-        occ = PC.occupancy({"dense": (H, passes)},
+        occ = PC.occupancy({"dense": (lane_rows, passes)},
                            int(stats[:, defs.ST_EVENTS].sum()), 1)
+        if ss is not None:
+            occ["shards"] = PC.shard_occupancy(shard_passes, shard_events,
+                                               lane_rows)
         dev = pscope.result() if pscope is not None else {}
         if pscope is not None:
             PC.write_json(pc_dir, dev, occ)
@@ -963,12 +1084,24 @@ class Simulation:
                            durability=durability,
                            hosted=(hosting.exit_info()
                                    if hosting is not None else {}),
-                           device_phases=dev, occupancy=occ)
+                           device_phases=dev, occupancy=occ,
+                           shards=1 if mesh is None else mesh.size,
+                           shard_passes=(shard_passes if mesh is not None
+                                         else []),
+                           mesh=({} if mesh is None else {
+                               "processes": mesh.size // len(mesh),
+                               "backend": mesh.comm.backend,
+                               "host_staged_bytes":
+                                   mesh.comm.staged_bytes}))
         if TR.ENABLED:
             TR.TRACER.complete("report.finalize", f0)
         if MT.ENABLED:
             MS.publish(MT.REGISTRY, memory, census=census)
-            PC.publish(MT.REGISTRY, occ=occ, dev=dev or None)
+            PC.publish(MT.REGISTRY, occ=occ, dev=dev or None,
+                       shards=occ.get("shards"))
+            for si, n_s in enumerate(shard_passes if ss is not None
+                                     else ()):
+                MT.REGISTRY.gauge(f"shard.passes.{si}").set(n_s)
             if network:
                 NSC.publish(MT.REGISTRY, network)
             report.summary()        # publishes the sim.* gauges
@@ -980,6 +1113,78 @@ class Simulation:
                                         report.events), MT.REGISTRY)
         return report
 
+    def _pad_for_mesh(self, n_shards: int, hosts, hp, sh):
+        """Pad the host dimension to a multiple of the shard count with
+        inert hosts (empty queues, no app) -> (hosts, hp, sh, cfg).
+        Inert rows never emit or receive, so rows [:H] are bit-identical
+        to the unpadded run's; they are cut off again before stats,
+        digests and checkpoints."""
+        H = self.cfg.num_hosts
+        Hp = -(-H // n_shards) * n_shards
+        if Hp == H:
+            return hosts, hp, sh, self.cfg
+        cfg = dataclasses.replace(self.cfg, num_hosts=Hp)
+        pad, dev = Hp - H, self.device
+        fresh = alloc_hosts(dataclasses.replace(cfg, num_hosts=pad), dev)
+        hosts = Hosts(**{f.name: torch.cat([getattr(hosts, f.name),
+                                            getattr(fresh, f.name)])
+                         for f in dataclasses.fields(Hosts)})
+
+        def cat(t, val):
+            return torch.cat([t, torch.full((pad,) + tuple(t.shape[1:]),
+                                            val, dtype=t.dtype,
+                                            device=t.device)])
+
+        hp = HostParams(
+            hid=torch.cat([hp.hid, torch.arange(H, Hp, dtype=torch.int32,
+                                                device=dev)]),
+            rng_stream=cat(hp.rng_stream, 0), vertex=cat(hp.vertex, 0),
+            bw_up=cat(hp.bw_up, 1), bw_down=cat(hp.bw_down, 1),
+            # app kind 0 runs no app; the words repeat a real row's, so
+            # no row of a handler's unmasked arithmetic divides by zero
+            app_kind=cat(hp.app_kind, 0),
+            app_cfg=torch.cat([hp.app_cfg, hp.app_cfg[-1:].expand(
+                (pad,) + tuple(hp.app_cfg.shape[1:]))]),
+            nic_buf=cat(hp.nic_buf, 1), cpu_cost=cat(hp.cpu_cost, 0),
+            cpu_threshold=cat(hp.cpu_threshold, -1),
+            rcvbuf0=cat(hp.rcvbuf0, -1), sndbuf0=cat(hp.sndbuf0, -1),
+            pcap_on=cat(hp.pcap_on, False))
+        sh = dataclasses.replace(
+            sh, host_vertex=cat(sh.host_vertex, 0),
+            host_bw_up=cat(sh.host_bw_up, 1),
+            host_bw_down=cat(sh.host_bw_down, 1))
+        return hosts, hp, sh, cfg
+
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in self._devices or [self.device]:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+
+# the Hosts fields the tracker's socket columns read (obs.tracker)
+SOCKET_FIELDS = ("sk_ooo_s", "sk_ooo_e", "sk_used", "sk_proto", "sk_rhost",
+                 "sk_rport", "sk_snd_una", "sk_snd_end", "sk_sndbuf",
+                 "sk_rcv_nxt", "sk_rcvbuf")
+
+
+def _mesh_hist(ss):
+    """The netscope histograms of a mesh, summed over its hosts."""
+    return ss.mesh.comm.gather_rows(
+        [s.ns_hist.sum(0, keepdim=True) for s in ss.hosts],
+        ss.device).sum(0)
+
+
+def _shard_gauges(reg, ss):
+    """A mesh chunk's per-shard load: cumulative events and the hosts
+    with a pending event per shard, and their imbalance (max/mean
+    events; 1.0 is balanced)."""
+    from ..parallel.shard import scalars
+    vals = scalars(ss, lambda s: torch.stack([
+        s.stats[:, defs.ST_EVENTS].sum(),
+        (s.eq_next < SIMTIME_MAX).sum()]))
+    for si, (ev, act) in enumerate(vals):
+        reg.gauge(f"shard.events.{si}").set(ev)
+        reg.gauge(f"shard.active_hosts.{si}").set(act)
+    mean = sum(v[0] for v in vals) / len(vals)
+    reg.gauge("shard.imbalance").set(
+        max(v[0] for v in vals) / mean if mean else 0.0)

@@ -17,10 +17,11 @@ whole simulation:
 :class:`EngineConfig` carries every reference field, so configs and
 fingerprints carry over. Knobs that only shape the reference's
 lockstep schedule (``active_block``, ``event_batch``, ``hot_split``,
-``exsortcap``, ``dstcap``, ``exchange_a2a``, ``a2acap``) are accepted
-and have no effect here: the reference holds every setting of them
-bit-identical. ``wide_state`` picks the layout a checkpoint is stored
-in; the device state is always wide.
+``exsortcap``, ``dstcap``) are accepted and have no effect here: the
+reference holds every setting of them bit-identical. ``exchange_a2a``
+and ``a2acap`` set a mesh run's exchange buckets (``parallel.shard``).
+``wide_state`` picks the layout a checkpoint is stored in; the device
+state is always wide.
 """
 
 from __future__ import annotations

@@ -49,8 +49,9 @@ from ..net.udp import udp_deliver
 from ..obs.passcope import scope
 from . import equeue
 from .defs import (EV_APP, EV_NIC_TX, EV_NULL, EV_PKT, EV_TCP_CLOSE,
-                   EV_TCP_TIMER, N_EVENT_KINDS, ST_DEFER_FANIN, ST_EVENTS,
-                   ST_PKTS_DROP_NET, ST_PKTS_DROP_Q, ST_PKTS_RECV)
+                   EV_TCP_TIMER, N_EVENT_KINDS, ST_DEFER_A2A,
+                   ST_DEFER_FANIN, ST_EVENTS, ST_PKTS_DROP_NET,
+                   ST_PKTS_DROP_Q, ST_PKTS_RECV)
 from .state import EngineConfig
 
 # pass-flag codes: an event kind, or (for EV_APP) one per (app, branch)
@@ -263,13 +264,16 @@ def _intake_take(nfree, count_of, IN, cfg: EngineConfig):
 
 
 def _deliver_dense(nfree, order, sdst, pkts, arrival, IN,
-                   cfg: EngineConfig):
-    """Build the [H, IN] inbound buffers from the destination-sorted
-    packet list (every destination's run is contiguous) and the
-    accepted mask over the sorted list."""
+                   cfg: EngineConfig, lo: int = 0):
+    """Build the [H, IN] inbound buffers of rows [lo, lo + H) from the
+    destination-sorted packet list (every destination's run is
+    contiguous) and the accepted mask over the sorted list (False for
+    entries destined outside the block). The single exchange passes the
+    whole state (lo = 0); the sharded one (parallel.shard) one shard's
+    row block of the gathered list."""
     N = sdst.shape[0]
     H = nfree.shape[0]
-    dsts = torch.arange(H, dtype=sdst.dtype, device=sdst.device)
+    dsts = torch.arange(lo, lo + H, dtype=sdst.dtype, device=sdst.device)
     first_of = torch.searchsorted(sdst, dsts, side="left")
     count_of = torch.searchsorted(sdst, dsts, side="right") - first_of
     take_of = _intake_take(nfree, count_of, IN, cfg)
@@ -281,8 +285,9 @@ def _deliver_dense(nfree, order, sdst, pkts, arrival, IN,
     in_time = torch.where(cell_ok, arrival[oj], SIMTIME_MAX)
     in_pkt = torch.where(cell_ok[:, :, None], pkts[oj], 0)
 
-    inblock = (sdst >= 0) & (sdst < H)
-    dbc = sdst.clamp(0, H - 1)
+    db = sdst - lo if lo else sdst
+    inblock = (db >= 0) & (db < H)
+    dbc = db.clamp(0, H - 1)
     rank = torch.arange(N, device=sdst.device) - first_of[dbc]
     kept_sorted = inblock & (rank < take_of[dbc])
     return in_pkt, in_time, kept_sorted
@@ -355,12 +360,15 @@ def merge_arrivals(st, in_pkt, in_time, hp=None, cfg: EngineConfig = None):
     st.stats[:, ST_PKTS_DROP_Q] += k - k2
 
 
-def exchange(st, hp, sh, cfg: EngineConfig, seed: int):
-    """Route, loss-roll and deliver all outbox packets into destination
-    event queues; carry what the destinations cannot take this window
-    (arrival stamps unchanged — exact deferral, never a drop)."""
-    H, O = st.ob_time.shape
-    N = H * O
+def route(st, sh, seed: int, H: int):
+    """The exchange's source side: every outbox slot's routing, the
+    handshake latency stamp and the loss roll, keyed by the globally
+    unique (src, uid) of the packet, so a slot's fate does not depend on
+    where its row lies (`H` is the global host count; the sharded
+    exchange routes each shard's rows with it). -> (pkts, stimes,
+    arrival, valid, deliver, dst) over the [rows * O] slots."""
+    rows, O = st.ob_time.shape
+    N = rows * O
 
     pkts = st.ob_pkt.reshape(N, P.PKT_WORDS).clone()
     stimes = st.ob_time.reshape(N)
@@ -379,10 +387,18 @@ def exchange(st, hp, sh, cfg: EngineConfig, seed: int):
     pkts[:, P.SEQ] = torch.where(is_syn, (lat // 1000).to(torch.int32),
                                  pkts[:, P.SEQ])
 
-    # loss roll keyed by the globally unique (src, uid) of the packet
     u = R.cheap_uniform(R.stream_of(seed, R.DOMAIN_DROP, src),
                         pkts[:, P.UID])
     deliver = valid & (rel > 0) & (u <= rel)
+    return pkts, stimes, arrival, valid, deliver, dst
+
+
+def exchange(st, hp, sh, cfg: EngineConfig, seed: int):
+    """Route, loss-roll and deliver all outbox packets into destination
+    event queues; carry what the destinations cannot take this window
+    (arrival stamps unchanged — exact deferral, never a drop)."""
+    H = st.ob_time.shape[0]
+    pkts, stimes, arrival, valid, deliver, dst = route(st, sh, seed, H)
     _deliver_and_carry(st, hp, cfg, pkts, stimes, arrival, valid,
                        deliver, torch.where(deliver, dst, H))
 
@@ -393,7 +409,6 @@ def _deliver_and_carry(st, hp, cfg: EngineConfig, pkts, stimes, arrival,
     destination row (`sortkey`; undelivered ones sort last), take each
     destination's intake, count the losses and deferrals, carry the
     rest (and the `frozen` slots, untouched) and merge the arrivals."""
-    rows, O = st.ob_time.shape
     net_dropped = valid & ~deliver
     order = torch.argsort(sortkey, stable=True)
     sdst = sortkey[order]
@@ -403,15 +418,33 @@ def _deliver_and_carry(st, hp, cfg: EngineConfig, pkts, stimes, arrival,
     kept = torch.zeros(sortkey.shape[0], dtype=torch.bool,
                        device=pkts.device)
     kept[order] = kept_sorted
+    settle(st, hp, cfg, pkts, stimes, arrival, deliver, net_dropped, kept,
+           None, in_pkt, in_time, frozen)
 
+
+def settle(st, hp, cfg: EngineConfig, pkts, stimes, arrival, deliver,
+           net_dropped, accepted, shipped, in_pkt, in_time, frozen=None):
+    """The exchange's tail, one implementation for the single, lane and
+    sharded exchanges: the tx trace records of the packets departing
+    this window (`accepted` by their destinations, or lost), the loss
+    count, the deferral counts — a delivered packet not accepted defers
+    in ST_DEFER_FANIN, or in ST_DEFER_A2A when `shipped` (the sharded
+    exchange's bucket mask) says it never left its shard — the carry
+    of the rest (and the `frozen` slots, untouched) and the merge of
+    `in_pkt`/`in_time` into the queues."""
+    rows, O = st.ob_time.shape
     if cfg.tracecap:
-        # tx records of the packets departing this window, lost ones
-        # included (a carried packet is traced in the window it ships)
+        # a carried packet is traced in the window it ships
         _trace_append(st, pkts.view(rows, O, -1), stimes.view(rows, O),
-                      (kept | net_dropped).view(rows, O), 1, hp.pcap_on)
-    stay = deliver & ~kept
+                      (accepted | net_dropped).view(rows, O), 1,
+                      hp.pcap_on)
+    stay = deliver & ~accepted
     st.stats[:, ST_PKTS_DROP_NET] += net_dropped.view(rows, O).sum(1)
-    st.stats[:, ST_DEFER_FANIN] += stay.view(rows, O).sum(1)
+    if shipped is None:
+        st.stats[:, ST_DEFER_FANIN] += stay.view(rows, O).sum(1)
+    else:
+        st.stats[:, ST_DEFER_FANIN] += (stay & shipped).view(rows, O).sum(1)
+        st.stats[:, ST_DEFER_A2A] += (stay & ~shipped).view(rows, O).sum(1)
     if frozen is not None:
         stay = stay | frozen
     _carry_outbox(st, pkts, stimes, arrival, stay, O)

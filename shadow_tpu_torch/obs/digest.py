@@ -72,11 +72,15 @@ def _dump(rec: dict) -> str:
 
 
 class DigestRecorder:
-    """One digest chain. `path=None` collects in memory only."""
+    """One digest chain. `path=None` collects in memory only. A
+    recorder that is not the `writer` (a process of a multi-process mesh
+    other than process 0) keeps the chain in lockstep, reading the file
+    on resume, but never writes it."""
 
     def __init__(self, path: str | None, every: int = DEFAULT_EVERY,
-                 context: dict = None):
+                 context: dict = None, writer: bool = True):
         self.path = path
+        self.writer = writer
         self.every = max(int(every), 1)
         self.host_detail = int(os.environ.get(
             "SHADOW_TPU_DIGEST_HOSTS", str(DEFAULT_HOST_DETAIL)))
@@ -153,7 +157,7 @@ class DigestRecorder:
                 "different runs")
         self._chain = chain
         self.records = kept
-        if self.path is not None:
+        if self.path is not None and self.writer:
             tmp = self.path + ".tmp"
             with open(tmp, "w") as f:
                 for rec in kept:
@@ -173,7 +177,7 @@ class DigestRecorder:
             return
         self.manifest = manifest
         mp = self.manifest_path()
-        if mp is not None:
+        if mp is not None and self.writer:
             tmp = mp + ".tmp"
             with open(tmp, "w") as f:
                 json.dump(manifest, f, indent=1, sort_keys=True)
@@ -212,7 +216,7 @@ class DigestRecorder:
                                       digest_size=16).digest()
         rec["chain"] = self._chain.hex()
         self.records.append(rec)
-        if self.path is not None:
+        if self.path is not None and self.writer:
             if self._file is None:
                 self._file = open(self.path, self._mode)
             self._file.write(_dump(rec) + "\n")
@@ -229,10 +233,12 @@ class DigestRecorder:
 
 def build_manifest(scenario, cfg, seed: int, sh, host_names: list,
                    recorder: DigestRecorder, device,
-                   checkpoint_path: str = None, pcap: bool = False,
-                   faults: bool = False, hosted: bool = False) -> dict:
+                   checkpoint_path: str = None, shards: int = 1,
+                   pcap: bool = False, faults: bool = False,
+                   hosted: bool = False) -> dict:
     """What decides that two chains are comparable: the reference's
-    manifest keys, with the torch device and versions."""
+    manifest keys, with the torch device and versions. `shards` is the
+    mesh size of a sharded run."""
     import platform as _platform
     import sys as _sys
 
@@ -262,7 +268,7 @@ def build_manifest(scenario, cfg, seed: int, sh, host_names: list,
         "engine_config": cfgd,
         "digest_every": recorder.every,
         "host_detail": recorder.host_detail,
-        "shards": 1,
+        "shards": int(shards),
         # pcap drains reset the trace rings chunk-wise: a pcap run's
         # trace_ring section differs from a plain run's
         "pcap": bool(pcap),
@@ -291,10 +297,11 @@ def _git_rev() -> str | None:
 
 
 def install(path: str | None, every: int = DEFAULT_EVERY,
-            context: dict = None) -> DigestRecorder:
+            context: dict = None, writer: bool = True) -> DigestRecorder:
     """Enable recording process-wide; the installer owns finish()."""
     global ENABLED, RECORDER
-    RECORDER = DigestRecorder(path, every=every, context=context)
+    RECORDER = DigestRecorder(path, every=every, context=context,
+                              writer=writer)
     ENABLED = True
     return RECORDER
 

@@ -53,13 +53,18 @@ def current_rss_bytes() -> int:
 
 
 class Watermark:
-    """Per-run memory high water of the run's torch device."""
+    """Per-run memory high water of the run's torch device, or of each
+    distinct device of a mesh (``per_device``, in shard order; one card
+    holding four shards counts once)."""
 
     def __init__(self, device):
-        self.device = torch.device(device)
+        devs = device if isinstance(device, (list, tuple)) else [device]
+        self.devices = [torch.device(d) for d in devs]
+        self.device = self.devices[0]
         self._probed = False
         self.source = "device" if self.device.type == "cuda" else "rss"
         self.peak_bytes = 0
+        self.per_device = [0] * len(self.devices)
         self.lifetime_peak_bytes = 0
         self.baseline_bytes = 0
         self.samples = 0
@@ -69,20 +74,25 @@ class Watermark:
         if self.source == "device":
             # the allocator's peak counter restarts with this run, so an
             # earlier run in the process cannot leak its peak into ours
-            self.lifetime_peak_bytes = torch.cuda.max_memory_allocated(
-                self.device)
-            torch.cuda.reset_peak_memory_stats(self.device)
-            self.baseline_bytes = torch.cuda.memory_allocated(self.device)
+            for d in self.devices:
+                self.lifetime_peak_bytes = max(
+                    self.lifetime_peak_bytes,
+                    torch.cuda.max_memory_allocated(d))
+                torch.cuda.reset_peak_memory_stats(d)
+                self.baseline_bytes += torch.cuda.memory_allocated(d)
         else:
             self.baseline_bytes = current_rss_bytes()
 
     def sample(self) -> int:
-        """Take one sample; returns the running per-run peak in bytes."""
+        """Take one sample; returns the running per-run peak in bytes
+        (the sum over the devices' peaks)."""
         if not self._probed:
             self._probe()
         if self.source == "device":
-            cur = torch.cuda.max_memory_allocated(self.device)
-            life = cur
+            for i, d in enumerate(self.devices):
+                self.per_device[i] = max(self.per_device[i],
+                                         torch.cuda.max_memory_allocated(d))
+            cur = life = sum(self.per_device)
         else:
             cur = current_rss_bytes()
             life = rss_bytes()
@@ -105,7 +115,7 @@ class Watermark:
                                    - self.baseline_bytes, 0)),
             "lifetime_peak_bytes": int(max(self.lifetime_peak_bytes,
                                            self.peak_bytes)),
-            "per_device": ([int(self.peak_bytes)]
+            "per_device": ([int(b) for b in self.per_device]
                            if self.source == "device" else None),
             "samples": self.samples,
         }

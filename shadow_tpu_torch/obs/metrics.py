@@ -162,9 +162,11 @@ class Registry:
                "gauges": gauges, "histograms": hists,
                "chunks": len(self.chunks)}
         # the phase attribution (obs.perf), the memory watermark
-        # (obs.memscope) and the netscope read-outs, when published
+        # (obs.memscope), the netscope read-outs and a mesh run's
+        # per-shard load (events, active hosts and passes per shard, the
+        # imbalance), when published
         for name, prefix in (("perf", "perf."), ("memory", "mem."),
-                             ("net", "net.")):
+                             ("net", "net."), ("shards", "shard.")):
             sec = section(prefix)
             if sec:
                 out[name] = sec

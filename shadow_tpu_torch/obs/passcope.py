@@ -265,6 +265,24 @@ def occupancy(pass_mix, events, batch):
     }
 
 
+def shard_occupancy(shard_passes, shard_events, width):
+    """Per-shard occupancy of a mesh run (the reference's
+    ``shard_occupancy``): each shard's utilization ``events_s /
+    (passes_s x width)`` over its own dense passes of `width` rows.
+
+    -> {"per_shard": [waste_frac...], "utilization": [...],
+        "skew": max/mean of the utilizations (1.0 = balanced)}"""
+    wastes, utils = [], []
+    for n, ev in zip(shard_passes, shard_events):
+        o = occupancy({"dense": (width, int(n))}, int(ev), 1)
+        wastes.append(o["waste_frac"])
+        utils.append(o["utilization"])
+    mean = sum(utils) / len(utils) if utils else 0.0
+    skew = (max(utils) / mean) if mean else 0.0
+    return {"per_shard": wastes, "utilization": utils,
+            "skew": round(skew, 4)}
+
+
 # --- capture ---------------------------------------------------------------
 
 class Capture:
@@ -356,9 +374,11 @@ def write_json(trace_dir, dev, occ):
 
 # --- publishing ------------------------------------------------------------
 
-def publish(registry, occ=None, dev=None):
+def publish(registry, occ=None, dev=None, shards=None):
     """passcope.* / occupancy.* gauges — the sections
-    obs.metrics.Registry.snapshot() assembles into metrics.json."""
+    obs.metrics.Registry.snapshot() assembles into metrics.json; a mesh
+    run's `shards` (``shard_occupancy``) adds the per-shard waste and
+    the skew."""
     if occ:
         registry.gauge("occupancy.waste_frac").set(occ["waste_frac"])
         registry.gauge("occupancy.utilization").set(occ["utilization"])
@@ -369,6 +389,10 @@ def publish(registry, occ=None, dev=None):
                 f"occupancy.rung_passes.{lbl}").set(r["passes"])
             registry.gauge(
                 f"occupancy.rung_lane_steps.{lbl}").set(r["lane_steps"])
+    if shards:
+        registry.gauge("occupancy.shard_skew").set(shards["skew"])
+        for i, w in enumerate(shards["per_shard"]):
+            registry.gauge(f"occupancy.shard_waste.{i}").set(w)
     if dev and dev.get("available"):
         registry.gauge("passcope.total_ms").set(dev["total_ms"])
         registry.gauge("passcope.attributed_frac").set(

@@ -262,6 +262,11 @@ def run_batch(sims, names=None, digest_paths=None, digest_every=0,
 
 # --- CLI -------------------------------------------------------------------
 
+# the reference's batch takes no mesh either (shadow_tpu/serving/batch.py)
+NO_MESH = ("batch lanes take no mesh; run a sharded scenario on its own "
+           "(python -m shadow_tpu_torch CONFIG --workers N)")
+
+
 def main(argv=None) -> int:
     from . import NO_EXECUTABLE_CACHE
 
@@ -302,6 +307,8 @@ def main(argv=None) -> int:
                         "(implies --netscope)")
     p.add_argument("--aot-cache", default=None, metavar="DIR",
                    help="refused: " + NO_EXECUTABLE_CACHE)
+    p.add_argument("--workers", type=int, default=0, metavar="N",
+                   help="refused: " + NO_MESH)
     p.add_argument("--perf", nargs="?", const="", default=None,
                    metavar="LEDGER",
                    help="append one perf-ledger entry per member (the "
@@ -313,6 +320,8 @@ def main(argv=None) -> int:
 
     if args.aot_cache:
         p.error(f"--aot-cache: {NO_EXECUTABLE_CACHE}")
+    if args.workers:
+        p.error(f"--workers: {NO_MESH}")
 
     import dataclasses
 
