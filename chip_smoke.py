@@ -4,14 +4,25 @@
 
 Drives ``shadow_tpu_torch`` through its API and CLI on the card and
 checks each phase; any failed check raises and the script exits
-non-zero. Phases:
+non-zero. Every single-device modeled run on the card takes the graph
+path — one captured CUDA graph replayed a chunk, one host read a chunk
+— and the script fails a run that does not (``check_graph_runs``, in
+every process). Phases:
 
 1. device   — the card (nvidia-smi name and power limit), torch/CUDA.
+30. flow-kernels — first, as it builds the kernel library
+              (``csrc/flow.cu`` through nvcc into build/kernels, or loads
+              it): the pass-flags and advance kernels against their plain
+              versions on the card at 4,096, 10,000 and 100,000 rows, bits
+              equal; their times (CUDA events) beside the plain versions'
+              and their bounds.
 
 The timed phases run first, each alone on the card and the host:
 
 2. ping     — examples/ping.xml through the CLI: mean RTT exactly 50 ms.
-3. phold    — phold-4096, 5 sim-s (bench.py's shape): messages conserved.
+3. phold    — phold-4096, 5 sim-s (bench.py's shape): messages conserved;
+              the main path of the kernels line, whose launches (captured)
+              and executions on the card it counts.
 4. gossip   — examples/gossip-100k.xml, 100,000 hosts, 30 sim-s, with the
               caps from its own comment: >= 99.9% of hosts saw every
               mined block.
@@ -38,30 +49,27 @@ The timed phases run first, each alone on the card and the host:
               stats, windows and passes equal its seed's run alone on
               the card; prints the batch wall, the summed events/s, the
               stacked passes and the four walls alone.
-Then the checks that time nothing run, beside phases 5-7, 13, 17, 20
-and 26-27, each in a process of its own on the same card (‡ in
-PERF.md: the walls of 5 and 6 are taken beside the other processes;
-with them alone the script ran past its time limit on slower hosts).
-The span replays of 5 and 6 (launches per pass, busy share) wait until
-every other process has finished, and run one after the other, alone:
-
 5. socks10k — 10,000 hosts (1,000 bulkservers, 1,000 socksproxies,
               8,000 socksclients fetching 48 KiB through one relay) on
               the ER-300 stand-in topology, runahead 10 ms, through
               Simulation: clients complete fetches, no host's socket
-              table overflows; launches per pass and the device's busy
-              share from a span of the run's passes (``PassSpan``).
+              table overflows; then three replays of one of its chunks
+              (``ChunkSpan``): host wall, device span, ms a pass.
 6. tgen-1k  — 1,000 tgen hosts (200 servers, 600 web clients fetching
               100 KiB, 200 bulk clients putting 1 MiB; ``bench.py``'s
               tgen-1k-tcp shape) on the ER-300 stand-in, runahead 10 ms,
               through Simulation: GETs and PUTs complete, no walk branch
-              is lost, no socket table or event queue overflows; launches
-              per pass and the busy share from a span of its passes.
-23. census  — no run of its own (in 5.'s process): socks10k's
+              is lost, no socket table or event queue overflows; then
+              three replays of one of its chunks.
+23. census  — no run of its own (after 5.): socks10k's
               ``SimReport.memory`` census (state bytes, per host, hot)
               beside the allocator's peak
               (``torch.cuda.max_memory_allocated``), which must hold the
               state.
+Then the checks that time nothing run, beside phases 7, 13, 17, 20 and
+26-27, each in a process of its own on the same card (‡ in PERF.md:
+their walls are taken beside the other processes):
+
 7. cli-tgen — examples/tgen-web-bulk.xml through ``python -m
               shadow_tpu_torch`` on the card: every web host completes
               its 10 GETs and every bulk host its 5.
@@ -155,6 +163,18 @@ every other process has finished, and run one after the other, alone:
               state sections), op-stream digest and child outputs
               (checked last).
 
+31. graph=eager — phold-4096 (5 sim-s) and phase 11's 2-hop lossy SOCKS
+              shape, each on the card on the graph path and with
+              ``run(graph=False)`` on the eager path: equal stats, windows,
+              digest chains and Hosts fields; a run after
+              ``Simulation.prewarm`` replays the prewarmed graph with the
+              same stats and chain; prints the captures, the
+              capture wall, replays, host reads a chunk, the graph's pool
+              bytes and conditional nodes, and both walls.
+32. aot-cache — two children on examples/ping.xml: ``--prewarm --aot-cache
+              DIR`` captures the chunk, then a run with ``--aot-cache DIR``
+              builds no library and loads it from DIR (a disk hit).
+
 ``--phases tgen-1k-cpu`` (never part of the default run) holds tgen-1k
 itself, all 1,000 hosts to 2.25 sim-s, on cuda against cpu: equal
 stats, windows and Hosts fields.
@@ -171,9 +191,10 @@ The binaries, the shim library and the C plugin build with cc into
 the port's build directory (``shadow_tpu_torch/hosting/build.py``) at
 first use; a failed build fails the run.
 
-The JAX package has no Pallas kernel, so the port has no kernel:
-the port's device work is plain PyTorch, and the ``kernels`` line is an
-empty list. The last line is the contract line
+The JAX package has no Pallas kernel. The port's hand-written kernels
+are the chunk's two reductions (``csrc/flow.cu``: pass flags and
+advance); the ``kernels`` line lists them with phase 30's figures and
+phase 3's launches. The last line is the contract line
 ``{"ok": true, "device": {...}}``. With no CUDA device the script exits
 non-zero before printing any result.
 """
@@ -264,6 +285,66 @@ def run(scen, cfg, device, **kw):
     sim = Simulation(scen, engine_cfg=cfg, device=device)
     rep = sim.run(**kw)
     return sim, rep
+
+
+def check_graph_runs():
+    """Every run on the card that its configuration sends down the graph
+    path (a single-device modeled run with no per-phase clock, passcope
+    or graph=False) must report path graph, one host read a chunk and a
+    replay a chunk: wraps ``Simulation.run`` in this process."""
+    from shadow_tpu_torch.engine.sim import Simulation
+    inner = Simulation.run
+    if getattr(inner, "checked", False):
+        return
+
+    def checked(self, *a, **kw):
+        rep = inner(self, *a, **kw)
+        ex = rep.execution
+        want = self.execution_path(kw.get("mesh"), False, kw.get("clock"),
+                                   kw.get("graph", True))[0]
+        if ex["path"] == "eager" and ex["reason"].startswith("passcope"):
+            want = "eager"
+        if ex["path"] != want:
+            fail(f"a run on {self.device} took the {ex['path']} path "
+                 f"({ex['reason']}), its configuration the {want} path")
+        if ex["path"] == "graph" and not (
+                ex["host_reads_per_chunk"] == 1.0
+                and ex["replays"] == ex["chunks"]):
+            fail(f"a graph run read the host {ex['host_reads_per_chunk']} "
+                 f"times a chunk, replayed {ex['replays']} graphs for "
+                 f"{ex['chunks']} chunks")
+        return rep
+    checked.checked = True
+    Simulation.run = checked
+
+
+def graph_of(rep, name):
+    """The graph path's figures of a card run, which must have taken
+    it, as phase-line fields."""
+    ex = rep.execution
+    if ex.get("path") != "graph":
+        fail(f"{name}: the card's run took the {ex.get('path')} path "
+             f"({ex.get('reason')})")
+    return {"path": "graph", "captures": ex["captures"],
+            "capture_wall_s": round(ex["capture_wall_s"], 3),
+            "replays": ex["replays"],
+            "host_reads_per_chunk": ex["host_reads_per_chunk"],
+            "pool_bytes": ex["pool_bytes"]}
+
+
+def graph_str(rep, name):
+    g = graph_of(rep, name)
+    return " ".join(f"{k}={v}" for k, v in g.items())
+
+
+def graph_summary(s, name):
+    """The same check on a card run's summary dict -> its fields."""
+    if (s.get("path"), s.get("host_reads_per_chunk")) != ("graph", 1.0):
+        fail(f"{name}: the card's run took the {s.get('path')} path "
+             f"({s.get('path_reason')}), {s.get('host_reads_per_chunk')} "
+             "host reads a chunk")
+    return (f"path=graph captures={s['captures']} replays={s['replays']} "
+            f"host_reads_per_chunk=1.0")
 
 
 def rates(rep):
@@ -408,108 +489,77 @@ def cbrt_inputs():
                       torch.tensor(edges, dtype=torch.float32)])
 
 
-class PassSpan:
-    """Kernel launches and device time over `passes` drain passes from
-    the start of a window of the run whose ``clock`` it is: the first
-    window from `first_window` on whose drain runs at least `passes`
-    passes. The run copies its state where the span starts and goes on
-    unprofiled; after it, ``report`` replays the span's passes from
-    that copy three times: timed without the profiler, under
-    ``torch.profiler`` (CUDA activity), and timed without it again.
-    The passes are the run's own (the drain is deterministic), the
-    run's wall carries only the copy, and the busy share is the
-    profiled kernel time over the faster unprofiled wall: the profiler
-    adds host time to a pass. Few passes: the profiler's
-    post-processing costs minutes per 10^6 events."""
+class ChunkSpan:
+    """Host wall and device span of one captured chunk of a graph-path
+    run: the first chunk that starts at or after `at_ns` of simulated
+    time. The run copies its state where that chunk starts and goes on;
+    after the run, ``report`` copies it back into the run's own tensors
+    (the chunk's graph reads those) and replays that chunk three times,
+    each timed by the host clock and by CUDA events around it. The
+    device span is the card's time from the graph's first node to its
+    last; over the host wall it says how far the host still holds the
+    card back. (``torch.profiler`` sees only a graph's top-level nodes,
+    not the kernels inside its conditional bodies, so it cannot split
+    the span into kernel time and gaps.) ``report`` overwrites the
+    run's final state."""
 
-    def __init__(self, first_window, passes):
-        self.first, self.passes = first_window, passes
-        self.w = 0
+    def __init__(self, at_ns):
+        self.at = at_ns
         self.snap = None
-        self.snap_w = None      # window of the copy, its passes so far
-        self.n = 0
-        self.found = False
         self.cost = 0.0
-
-    def clock(self, label):
-        if label == "advance":
-            self.found = self.found or (self.snap is not None
-                                        and self.n >= self.passes)
-            self.w += 1
 
     @contextlib.contextmanager
     def attached(self):
-        from shadow_tpu_torch.engine import window as W
-        inner = self.inner = W.step_all_hosts
-        W.step_all_hosts = lambda *a: self._step(inner, *a)
+        from shadow_tpu_torch.engine import sim as S
+        inner = self.inner = S.run_windows_graph
+        S.run_windows_graph = self._chunk
         try:
             yield self
         finally:
-            W.step_all_hosts = inner
+            S.run_windows_graph = inner
 
-    def _step(self, inner, st, *rest):
-        if (not self.found and self.w >= self.first - 1
-                and self.snap_w != self.w):
+    def _chunk(self, st, hp, sh, ws, we, cfg, max_windows, plan,
+               stop=None):
+        if self.snap is None and ws >= self.at:
             t0 = time.perf_counter()
-            self.snap = (type(st), {k: v.clone() for k, v in
-                                    vars(st).items()}, rest)
-            self.snap_w, self.n = self.w, 0
+            self.snap = {k: v.clone() for k, v in vars(st).items()}
+            self.args = (st, hp, sh, ws, we, cfg, max_windows, plan)
+            self.stop = stop
             torch.cuda.synchronize()
             self.cost += time.perf_counter() - t0
-        ran = inner(st, *rest)
-        self.n += ran
-        return ran
+        return self.inner(st, hp, sh, ws, we, cfg, max_windows, plan,
+                          stop=stop)
 
     def _replay(self):
-        """Run the span's passes on a fresh copy -> (passes, wall s)."""
-        cls, arrs, rest = self.snap
-        st = cls(**{k: v.clone() for k, v in arrs.items()})
-        n = 0
+        """Replay the chunk from the copy -> (windows, passes, host wall
+        ms, device span ms)."""
+        st = self.args[0]
+        for k, v in self.snap.items():
+            getattr(st, k).copy_(v)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with torch.inference_mode():        # as run_windows runs
-            while n < self.passes and self.inner(st, *rest):
-                n += 1
+        a.record()
+        _, _, n, passes = self.inner(*self.args, stop=self.stop)
+        b.record()
         torch.cuda.synchronize()
-        return n, time.perf_counter() - t0
+        return n, passes, (time.perf_counter() - t0) * 1e3, a.elapsed_time(b)
 
     def report(self):
-        from torch.profiler import ProfilerActivity, profile
         if self.snap is None:
-            fail(f"the span's window was not reached (windows run: "
-                 f"{self.w})")
-        n_plain, plain_wall = self._replay()
-        prof = profile(activities=[ProfilerActivity.CUDA])
-        prof.start()
-        n, prof_wall = self._replay()
-        prof.stop()
-        n_again, again_wall = self._replay()
+            fail(f"no chunk started at or after {self.at} ns")
+        runs = [self._replay() for _ in range(3)]
         self.snap = None
-        if not n or not n == n_plain == n_again:
-            fail(f"span replays ran {n_plain}, {n} and {n_again} passes")
-        launches, kern_us = 0, 0.0
-        raw = getattr(prof.profiler, "kineto_results", None)
-        for e in (raw.events() if raw is not None else ()):
-            if e.name().startswith(("cudaLaunchKernel", "cuLaunchKernel")):
-                launches += 1
-            elif str(e.device_type()).endswith("CUDA"):
-                kern_us += e.duration_ns() / 1e3
-        if raw is None:
-            for e in prof.key_averages():
-                if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
-                    launches += e.count
-                dev = getattr(e, "self_device_time_total", 0.0)
-                if dev and str(getattr(e, "device_type", "")).endswith(
-                        "CUDA"):
-                    kern_us += dev
-        return {"window": self.snap_w + 1, "passes": n, "launches": launches,
-                "launches_per_pass": round(launches / n, 1),
-                "device_kernel_ms": round(kern_us / 1e3, 3),
-                "drain_wall_ms": round(plain_wall * 1e3, 3),
-                "profiled_drain_wall_ms": round(prof_wall * 1e3, 3),
-                "drain_wall_again_ms": round(again_wall * 1e3, 3),
-                "device_busy_share": round(
-                    kern_us / 1e6 / min(plain_wall, again_wall), 4),
+        if len({r[:2] for r in runs}) != 1 or not runs[0][1]:
+            fail(f"chunk replays ran {[r[1] for r in runs]} passes")
+        n, passes = runs[0][:2]
+        walls, spans = [r[2] for r in runs], [r[3] for r in runs]
+        best = min(range(3), key=lambda i: walls[i])
+        return {"sim_ns": self.args[3], "windows": n, "passes": passes,
+                "chunk_wall_ms": [round(w, 3) for w in walls],
+                "device_span_ms": [round(d, 3) for d in spans],
+                "ms_per_pass": round(walls[best] / passes, 4),
+                "device_span_share": round(spans[best] / walls[best], 4),
                 "state_copy_s": round(self.cost, 3)}
 
 
@@ -519,6 +569,10 @@ class PassSpan:
 # took the whole script to 1,208 s on a slow host once the telemetry
 # phases were added
 TGEN_STOP_S = 2.25
+# the chunks ChunkSpan replays: the first at or after these sim times,
+# with every client active
+TGEN_SPAN_NS = 2_100_000_000
+SOCKS_SPAN_NS = 2_500_000_000
 
 
 def two_poi_topology(loss=0.0):
@@ -1045,9 +1099,9 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device_count {torch.cuda.device_count()} kind {kind!r}")
-    print("kernels: [] (the JAX package has no Pallas kernel; this "
-          "slice's device work is plain PyTorch)", flush=True)
+          f"device_count {torch.cuda.device_count()} kind {kind!r}",
+          flush=True)
+    check_graph_runs()
 
     args = sys.argv[1:]
     only = None
@@ -1073,10 +1127,23 @@ def main():
 def _phases(want, only, canonicalize_state, defs, R, kind, t_all, tmp):
     # 2.-4., 18., 22. and 24. the timed phases, alone on the card
     import multiprocessing as mp
+
     from shadow_tpu_torch.__main__ import main as cli
+    from shadow_tpu_torch.core import kernels as K
+    # 30. first: it builds the kernel library (or loads it)
+    figures = flow_kernels_phase() if want("flow-kernels") else None
     if want("ping"):
         ping_phase(cli)
-    timed_phold = phold_phase() if want("phold-4096") else None
+    # 3. is the main path whose kernel launches the kernels line counts
+    timed_phold = launches = executions = None
+    if want("phold-4096"):
+        K.executions(reset=True)
+        K.LAUNCHES.update(pass_flags=0, advance=0)
+        timed_phold = phold_phase()
+        launches, executions = dict(K.LAUNCHES), K.executions()
+        if not all(launches.values()) or not all(executions.values()):
+            fail(f"phold-4096 did not go through every kernel: launches "
+                 f"{launches}, executions {executions}")
     if want("passcope"):
         passcope_phase()
     if want("batch-phold-4096x4"):
@@ -1084,21 +1151,21 @@ def _phases(want, only, canonicalize_state, defs, R, kind, t_all, tmp):
     plain_gossip = gossip_phase() if want("gossip-100k") else None
     if want("gossip-100k-telemetry"):
         gossip_telemetry_phase(plain_gossip)
+    # 5., 23. and 6. alone too: on the graph path they take a minute or
+    # so, where the eager loop took minutes beside other processes
+    if want("socks10k"):
+        census_phase(socks10k_phase(defs))
+    if want("tgen-1k"):
+        tgen1k_phase(defs)
     if only and "tgen-1k-cpu" in only:
         tgen1k_cpu_phase(canonicalize_state)
 
-    # 5.-7., 13. (with its CPU halves), 17., 20. (with its CPU twin) and
+    # 7., 13. (with its CPU halves), 17., 20. (with its CPU twin) and
     # 26.-27. in processes of their own on the same card, beside 8.-12.,
-    # 14.-16., 19., 21. and 28.-29.: their passes are host-bound, and
-    # the card serves a few such processes at about the speed of one
-    # each (PERF.md §6); all in one process the script would run past
-    # its time limit. 5.'s and 6.'s span replays wait at their gates.
-    ctx = mp.get_context("spawn")
-    gate = {n: (ctx.Event(), ctx.Event()) for n in ("socks10k", "tgen-1k")}
-    socks = (Child(_socks10k_child, "socks10k", args=(gate["socks10k"],))
-             if want("socks10k") else None)
-    tgen1k = (Child(_tgen1k_child, "tgen-1k", args=(gate["tgen-1k"],))
-              if want("tgen-1k") else None)
+    # 14.-16., 19., 21. and 28.-32.: the eager phases among them are
+    # host-bound, and the card serves a few such processes at about the
+    # speed of one each (PERF.md §6); all in one process the script
+    # would run past its time limit
     faults = (Child(_socks10k_faults_child, "socks10k-faults")
               if want("socks10k-faults") else None)
     tgen_cli = CliTgen() if want("cli-tgen") else None
@@ -1142,6 +1209,10 @@ def _phases(want, only, canonicalize_state, defs, R, kind, t_all, tmp):
             telemetry_gpu_cpu_phase(canonicalize_state)
         if want("hosted-gpu=cpu"):
             hosted_gpu_cpu_phase(canonicalize_state)
+        if want("graph=eager"):
+            graph_eager_phase(canonicalize_state)
+        if want("aot-cache"):
+            aot_cache_phase()
         # 29.'s ranks start last, so that they load the host only while
         # this process would otherwise wait for the children
         if want("dist-phold"):
@@ -1167,28 +1238,16 @@ def _phases(want, only, canonicalize_state, defs, R, kind, t_all, tmp):
             fleet_finish(fleet)
         if shim_gpu:
             shim64_compare(shim_gpu, shim_cpu, canonicalize_state)
-        # every other process has finished: once both runs have, 5.'s
-        # and then 6.'s span replays, each alone on the card
-        tcp = [(child, gate[child.name]) for child in (socks, tgen1k)
-               if child]
-        for child, (ready, _) in tcp:
-            child.wait_for(ready)
-        for child, (_, go) in tcp:
-            go.set()
-            err, _ = child.result()
-            if err:
-                fail(f"{child.name}: {err}")
     finally:
-        for _, go in gate.values():
-            go.set()
-        for child in (socks, tgen1k, tgen_cli, tgen, faults, fleet,
+        for child in (tgen_cli, tgen, faults, fleet,
                       shim_gpu, shim_cpu, meshes, mesh_tcp_cpu,
                       *dist_ranks):
             if child:
                 child.stop()
 
     print(f"total wall {time.perf_counter() - t_all:.1f}s")
-    print(json.dumps({"kernels": []}))
+    if figures is not None and launches is not None:
+        print(json.dumps(kernels_line(figures, launches, executions)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -1441,7 +1500,8 @@ def phold_phase():
             s["pkts_sent"] > 4096 and (per_host > 0).all()):
         fail(f"phold-4096 conservation: {s}")
     phase("phold-4096", time.perf_counter() - t0, **rates(rep),
-          pkts_sent=s["pkts_sent"], pkts_recv=s["pkts_recv"])
+          pkts_sent=s["pkts_sent"], pkts_recv=s["pkts_recv"],
+          **graph_of(rep, "phold-4096"))
     return rep
 
 
@@ -1458,8 +1518,207 @@ def gossip_phase():
         fail(f"gossip-100k: mined={mined} share={share} {s}")
     phase("gossip-100k", time.perf_counter() - t0, **rates(rep),
           blocks=mined, full_share=round(share, 6),
-          mean_prop_delay_us=round(s["mean_rtt_us"], 1))
+          mean_prop_delay_us=round(s["mean_rtt_us"], 1),
+          **graph_of(rep, "gossip-100k"))
     return rep
+
+
+# --- the chunk graph (core/flow.py, core/kernels.py, core/jitcache.py) -----
+
+# the card's peak memory rate (NVIDIA's data sheet, H100 SXM), for the
+# kernels' bounds: both move bytes and do a few integer operations a row
+HBM_BYTES_PER_S = 3.35e12
+KERNEL_SOURCE = "shadow_tpu_torch/csrc/flow.cu"
+KERNEL_ROWS = (4096, 10_000, 100_000)     # phold-4096, socks10k, gossip-100k
+
+
+def _time_ms(fn, reps=200):
+    """Mean ms a call of `fn` over `reps` calls, by CUDA events."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _kernel_inputs(H, seed):
+    """Rows of a drain pass and a window boundary at H hosts, from a
+    seed: pass codes (half the rows idle), TCP-part feature words, the
+    queues' next events, the outboxes' next arrivals and counts."""
+    from shadow_tpu_torch.engine.defs import EV_NULL
+    from shadow_tpu_torch.engine.window import _N_CODES
+    rng = np.random.RandomState(seed)
+    code = np.where(rng.rand(H) < 0.5, EV_NULL,
+                    rng.randint(0, _N_CODES, H)).astype(np.int32)
+    feat = ((rng.rand(H, 11) < 0.01) << np.arange(11)).sum(1).astype(
+        np.int32)
+    eq = rng.randint(0, 5 * 10**9, H).astype(np.int64)
+    eq[rng.rand(H) < 0.3] = (1 << 63) - 1
+    ob = rng.randint(0, 5 * 10**9, H).astype(np.int64)
+    ob[rng.rand(H) < 0.7] = (1 << 63) - 1
+    cnt = rng.randint(0, 3, H).astype(np.int32)
+    return [torch.from_numpy(v).cuda() for v in (code, feat, eq, ob, cnt)]
+
+
+def flow_kernels_phase():
+    """30. the chunk's two hand-written kernels against their plain
+    versions on the card, bits equal, at the main path's row counts,
+    with their times -> {kernel: figures at the largest row count}."""
+    from shadow_tpu_torch.core import kernels as K
+    from shadow_tpu_torch.engine.defs import EV_NULL
+    from shadow_tpu_torch.engine.window import _N_CODES
+    from shadow_tpu_torch.engine.window import window_scalars
+    t0 = time.perf_counter()
+    launches0 = dict(K.LAUNCHES)
+    out, rows = {}, []
+    for H in KERNEL_ROWS:
+        code, feat, eq, ob, cnt = _kernel_inputs(H, H)
+        args = (code, feat, _N_CODES, 11, EV_NULL, 1 << 10, 0)
+        got = K.pass_flags(*args)
+        want = K.pass_flags_plain(*args)
+        err_f = int((got - want).abs().max())
+        W0 = window_scalars(2 * 10**9, 2 * 10**9 + 10**7, 5 * 10**9,
+                            10**7, 8).cuda()
+        W0[K.W_OB0] = 5
+        err_a = 0
+        for mode in (K.ADV_OPEN, K.ADV_SHIP, K.ADV_STEP):
+            g = K.advance(eq, ob, cnt, W0.clone(), mode)
+            w = K.advance_plain(eq, ob, cnt, W0.clone(), mode)
+            err_a = max(err_a, int((g - w).abs().max()))
+        if err_f or err_a:
+            fail(f"flow-kernels: kernel != plain at H={H}: pass_flags "
+                 f"{err_f}, advance {err_a}")
+        W = W0.clone()
+        fig = {
+            "pass_flags": dict(
+                ms=_time_ms(lambda: K.pass_flags(*args)),
+                plain_ms=_time_ms(lambda: K.pass_flags_plain(*args)),
+                bytes=8 * H + 4 * (_N_CODES + 12), max_abs_err=err_f),
+            "advance": dict(
+                ms=_time_ms(lambda: K.advance(eq, ob, cnt, W, K.ADV_STEP)),
+                plain_ms=_time_ms(lambda: K.advance_plain(
+                    eq, ob, cnt, W, K.ADV_STEP)),
+                bytes=20 * H + 2 * 8 * K.W_LEN, max_abs_err=err_a)}
+        for name, f in fig.items():
+            f["bound_ms"] = f["bytes"] / HBM_BYTES_PER_S * 1e3
+            rows.append(f"{name}@{H}: {f['ms']:.5f} ms (plain "
+                        f"{f['plain_ms']:.5f}, bound {f['bound_ms']:.6f})")
+        out = fig
+    # the comparison's launches are not the main path's
+    K.LAUNCHES.update(launches0)
+    print("  " + "; ".join(rows), flush=True)
+    phase("flow-kernels", time.perf_counter() - t0, rows=KERNEL_ROWS[-1],
+          **{f"{n}_ms": round(f["ms"], 5) for n, f in out.items()},
+          **{f"{n}_plain_ms": round(f["plain_ms"], 5)
+             for n, f in out.items()}, bits_equal=True)
+    return out
+
+
+def kernels_line(figures, launches, executions):
+    """The contract's kernels line: each kernel's figures from phase 30
+    and its launches on the main path (phase 3's run)."""
+    what = {"pass_flags": "the drain pass's dispatch bitmap and go-on flag",
+            "advance": "the window boundary: next [ws, we), counters"}
+    return {"kernels": [
+        {"name": n, "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": "none: shadow_tpu has no pl.pallas_call (" + what[n]
+                     + " for the captured chunk)",
+         "launches": launches[n], "executions": executions[n],
+         "max_abs_err": f["max_abs_err"], "ms": round(f["ms"], 6),
+         "plain_ms": round(f["plain_ms"], 6),
+         "bound_ms": round(f["bound_ms"], 6), "bound_by": "bytes",
+         "library_ms": None, "rows": KERNEL_ROWS[-1]}
+        for n, f in figures.items()]}
+
+
+def graph_eager_phase(canonicalize_state):
+    """31. phold-4096 (5 sim-s) and the 2-hop lossy SOCKS shape, each on
+    the card on the graph path and on the eager path: equal stats,
+    windows, digest chains and Hosts fields; and a third run after
+    ``Simulation.prewarm``, which captures nothing more and gives the
+    same stats and chain."""
+    import tempfile
+
+    from shadow_tpu_torch.engine.sim import Simulation
+    from shadow_tpu_torch.engine.state import EngineConfig
+    t0 = time.perf_counter()
+    socks_caps = dict(qcap=32, scap=12, obcap=16, incap=24, txqcap=12,
+                      chunk_windows=8)
+    n_socks = socks_scenario(0.02, 2, 90).total_hosts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, mk, cfg in (
+                ("phold-4096", lambda: phold_scenario(4096, 5),
+                 phold_cfg(4096)),
+                ("socks-multihop-lossy",
+                 lambda: socks_scenario(0.02, 2, 90),
+                 EngineConfig(num_hosts=n_socks, **socks_caps))):
+            runs = {}
+            for graph in (True, False):
+                chain = os.path.join(tmp, f"{name}.{graph}.jsonl")
+                sim, rep = run(mk(), cfg, "cuda", graph=graph, digest=chain,
+                               digest_every=8)
+                runs[graph] = (sim, rep, _chain(chain))
+            (gs, g, gch), (es, e, ech) = runs[True], runs[False]
+            _same_on_both(name, arrays(gs, g), arrays(es, e),
+                          canonicalize_state)
+            if gch != ech or g.windows != e.windows:
+                fail(f"graph=eager {name}: chains or windows differ")
+            # a run after Simulation.prewarm replays the graph prewarm
+            # captured, with the same results
+            chain = os.path.join(tmp, f"{name}.prewarmed.jsonl")
+            ps = Simulation(mk(), engine_cfg=cfg, device="cuda")
+            info = ps.prewarm(digest_every=8)
+            p = ps.run(digest=chain, digest_every=8)
+            if not (info["captured"] and p.execution["captures"] == 0
+                    and _chain(chain) == gch and (p.stats == g.stats).all()):
+                fail(f"graph=eager {name}: the prewarmed run {info} "
+                     f"{p.execution} differs from the plain graph run")
+            if e.execution["path"] != "eager":
+                fail(f"graph=eager {name}: graph=False ran {e.execution}")
+            print(f"  {name}: events={g.events} windows={g.windows} "
+                  f"passes={g.passes} {graph_str(g, name)} "
+                  f"nodes={g.execution['nodes']} graph_wall="
+                  f"{g.wall_seconds:.3f}s eager_wall={e.wall_seconds:.3f}s "
+                  f"eager_host_reads_per_chunk="
+                  f"{e.execution['host_reads_per_chunk']:.1f}", flush=True)
+    phase("graph=eager", time.perf_counter() - t0, chains_equal=True)
+
+
+def aot_cache_phase():
+    """32. two children on examples/ping.xml: ``--prewarm --aot-cache
+    DIR`` builds (or loads) the kernel library and captures the chunk;
+    then a run with ``--aot-cache DIR`` builds nothing and loads the
+    library from DIR."""
+    import tempfile
+    t0 = time.perf_counter()
+    xml = os.path.join(HERE, "examples", "ping.xml")
+    with tempfile.TemporaryDirectory() as d:
+        base = [sys.executable, "-m", "shadow_tpu_torch", xml,
+                "--aot-cache", d]
+        out = []
+        for extra in (["--prewarm"], ["--summary-json"]):
+            r = subprocess.run(base + extra, capture_output=True, text=True,
+                               cwd=HERE, timeout=600)
+            if r.returncode:
+                fail(f"aot-cache: {' '.join(extra)} exited {r.returncode}:"
+                     f" {r.stderr[-2000:]}")
+            out.append(json.loads(r.stdout.strip().splitlines()[-1]))
+        warm, s = out
+        entries = [f for f in os.listdir(d) if f.endswith(".so")]
+    if not warm["captured"] or warm["native_cache"] == "none":
+        fail(f"aot-cache: the pre-warm captured nothing: {warm}")
+    if s["native_builds"] != 0 or s["disk_hits"] < 1 or s["path"] != "graph":
+        fail(f"aot-cache: the warm child built {s['native_builds']} "
+             f"libraries, loaded {s['disk_hits']}, path {s['path']}")
+    phase("aot-cache", time.perf_counter() - t0,
+          prewarm_native=warm["native_cache"], warm_builds=0,
+          warm_disk_hits=s["disk_hits"], entries=len(entries),
+          cache_scope=warm["cache_scope"], mean_rtt_us=s["mean_rtt_us"])
 
 
 # --- multi-device (parallel/shard.py, parallel/dist.py) ---------------------
@@ -1737,7 +1996,8 @@ def udp_gpu_cpu_phase(canonicalize_state):
             fail(f"{name}: no packet was lost on the lossy edge")
         print(f"  {name}: events={grep.events} cuda_wall="
               f"{grep.wall_seconds:.3f}s cpu_wall={crep.wall_seconds:.3f}s "
-              f"fields_equal=82 raw_differing={raw}", flush=True)
+              f"fields_equal=82 raw_differing={raw} "
+              f"{graph_str(grep, name)}", flush=True)
     phase("gpu=cpu", time.perf_counter() - t0)
 
 
@@ -1758,28 +2018,14 @@ def cbrt_phase():
     phase("cbrt", time.perf_counter() - t0, inputs=x.numel(), mismatches=0)
 
 
-def socks10k_phase(defs, gate=None):
-    """5. socks10k through Simulation on the card; with a `gate`, its
-    span replays only once the gate opens (``_await_alone``)."""
+def socks10k_phase(defs):
+    """5. socks10k through Simulation on the card, on the graph path,
+    then the replays of one of its chunks (``ChunkSpan``)."""
     t0 = time.perf_counter()
     sim = socks10k_sim()
-    seen = [0]
-
-    def progress(label):
-        if label == "advance":
-            seen[0] += 1
-            if seen[0] % 200 == 0:
-                print(f"  socks10k: {seen[0]} windows, wall "
-                      f"{time.perf_counter() - t0:.1f}s", flush=True)
-
-    span = PassSpan(20, 20)
-
-    def clock(label):
-        span.clock(label)
-        progress(label)
-
+    span = ChunkSpan(SOCKS_SPAN_NS)
     with span.attached():
-        rep = sim.run(clock=clock)
+        rep = sim.run()
     s = rep.summary()
     st = rep.stats
     from shadow_tpu_torch.apps.base import APP_SOCKS_CLIENT
@@ -1792,11 +2038,11 @@ def socks10k_phase(defs, gate=None):
     if s["drop_q"] != 0:
         fail(f"socks10k: event-queue drops {s['drop_q']} (engine fault)")
     print(f"  socks10k run: {json.dumps(rates(rep) | s)}", flush=True)
-    wall, waited = _await_alone(t0, gate)
+    wall = time.perf_counter() - t0
+    graph = graph_of(rep, "socks10k")
     span = span.report()
-    phase("socks10k", wall, span_waited_s=waited, **rates(rep),
-          stop_sim_s=SOCKS_STOP_S,
-          launches_per_pass=span["launches_per_pass"],
+    phase("socks10k", wall, **rates(rep),
+          stop_sim_s=SOCKS_STOP_S, **graph,
           span=json.dumps(span, separators=(",", ":")),
           bytes_recv=s["bytes_recv"], transfers_done=s["transfers_done"],
           retransmits=s["retransmits"], clients_done_share=round(
@@ -1832,7 +2078,7 @@ def tcp_gpu_cpu_phase(canonicalize_state):
               f"{s['retransmits']} transfers={s['transfers_done']} "
               f"cuda_wall={g[1].wall_seconds:.3f}s cpu_wall="
               f"{c[1].wall_seconds:.3f}s fields_equal=82 "
-              f"raw_differing={raw}", flush=True)
+              f"raw_differing={raw} {graph_str(g[1], name)}", flush=True)
     phase("tcp-gpu=cpu", time.perf_counter() - t0)
 
 
@@ -1858,15 +2104,15 @@ def cli_tcp_phase(cli):
           **{f"{k}_events_xfers_windows": v for k, v in out.items()})
 
 
-def tgen1k_phase(defs, gate=None):
-    """6. tgen-1k through Simulation on the card; with a `gate`, its span
-    replays only once the gate opens (``_await_alone``)."""
+def tgen1k_phase(defs):
+    """6. tgen-1k through Simulation on the card, on the graph path,
+    then the replays of one of its chunks (``ChunkSpan``)."""
     from shadow_tpu_torch.baseline_configs import bulk1k
     t0 = time.perf_counter()
     sim = bulk1k(1000, stop=TGEN_STOP_S, device="cuda", runahead_ms=10)
-    span = PassSpan(50, 20)
+    span = ChunkSpan(TGEN_SPAN_NS)
     with span.attached():
-        rep = sim.run(clock=span.clock)
+        rep = sim.run()
     s = rep.summary()
     st = rep.stats
     kind = {k: np.array([n.startswith(k) for n in sim.host_names])
@@ -1891,10 +2137,10 @@ def tgen1k_phase(defs, gate=None):
              f"walk branches: {out}")
     if not (gets and puts):
         fail(f"tgen-1k: GETs or PUTs never completed: {out}")
-    wall, waited = _await_alone(t0, gate)
+    wall = time.perf_counter() - t0
+    graph = graph_of(rep, "tgen-1k")
     span = span.report()
-    phase("tgen-1k", wall, span_waited_s=waited, **out,
-          launches_per_pass=span["launches_per_pass"],
+    phase("tgen-1k", wall, **out, **graph,
           span=json.dumps(span, separators=(",", ":")))
 
 
@@ -1983,7 +2229,8 @@ def tgen_gpu_cpu_phase(canonicalize_state, label="tgen-gpu=cpu",
                   f"retransmits={s['retransmits']} cuda_wall="
                   f"{s['wall_seconds']:.3f}s cpu_wall="
                   f"{cs['wall_seconds']:.3f}s fields_equal=82 "
-                  f"raw_differing={raw}", flush=True)
+                  f"raw_differing={raw} {graph_summary(s, name)}",
+                  flush=True)
     phase(label, time.perf_counter() - t0)
 
 
@@ -2040,6 +2287,9 @@ def faults_demo_phase(cli):
     (rc, s, gch), (crc, cs, cch) = out["cuda"], out["cpu"]
     if rc or crc or s["device"] != "cuda":
         fail(f"faults-demo: rc={rc}/{crc} {s}")
+    if (s["path"], s["host_reads_per_chunk"]) != ("graph", 1.0):
+        fail(f"faults-demo: the card's run took the {s['path']} path, "
+             f"{s['host_reads_per_chunk']} host reads a chunk")
     if gch != cch:
         fail("faults-demo: the card's digest chain differs from the CPU's")
     # pings at 2, 3, 6, 8 and 9 s answered; 4 and 5 s lost on the link
@@ -2047,7 +2297,9 @@ def faults_demo_phase(cli):
         fail(f"faults-demo: unexpected fault effects: {s}")
     phase("faults-demo", time.perf_counter() - t0, events=s["events"],
           faults_applied=4, drop_net=2, pings_answered=5,
-          chain_records=gch.count(b"\n"), chains_equal=True)
+          chain_records=gch.count(b"\n"), chains_equal=True, path="graph",
+          captures=s["captures"], replays=s["replays"],
+          host_reads_per_chunk=s["host_reads_per_chunk"])
 
 
 def ckpt_socks_scenario():
@@ -2103,7 +2355,7 @@ def ckpt_gpu_cpu_phase():
               rsts=grep.durability["rsts"],
               transfers=grep.summary()["transfers_done"],
               snapshot_sim_ns=snap_ns, chain_records=_chain(g).count(b"\n"),
-              chains_equal=True)
+              chains_equal=True, **graph_of(grep, "ckpt-gpu=cpu"))
 
 
 def cpu_model_gpu_cpu_phase():
@@ -2151,7 +2403,8 @@ def cpu_model_gpu_cpu_phase():
         fail(f"cpu-model-gpu=cpu: the CPU model did not delay: {s}")
     phase("cpu-model-gpu=cpu", time.perf_counter() - t0,
           events=s["events"], mean_rtt_us=s["mean_rtt_us"],
-          chain_records=gch.count(b"\n"), chains_equal=True)
+          chain_records=gch.count(b"\n"), chains_equal=True,
+          **graph_of(g, "cpu-model-gpu=cpu"))
 
 
 # examples/gossip-100k.xml's own cap overrides (its comment)
@@ -2348,7 +2601,8 @@ def telemetry_gpu_cpu_phase(canonicalize_state):
                   f"{len(ghb)} rtt_p50_us={s['rtt_p50_us']} "
                   f"completion_p99_s={s['completion_p99_s']} "
                   f"cuda_wall={s['wall_seconds']:.3f}s cpu_wall="
-                  f"{cs['wall_seconds']:.3f}s", flush=True)
+                  f"{cs['wall_seconds']:.3f}s {graph_summary(s, name)}",
+                  flush=True)
     phase("telemetry-gpu=cpu", time.perf_counter() - t0)
 
 
@@ -2480,6 +2734,13 @@ def _cli_tgen_child(conn):
         raise
 
 
+def _child_main(target, conn, *args):
+    """A Child's process: the graph-path check of the main process, then
+    the phase."""
+    check_graph_runs()
+    target(conn, *args)
+
+
 class Child:
     """A phase run by a spawned child process on the same card while the
     main process runs others: its passes are host-bound, and the card
@@ -2491,7 +2752,8 @@ class Child:
         ctx = mp.get_context("spawn")
         self.name = name
         self.conn, child = ctx.Pipe(duplex=False)
-        self.proc = ctx.Process(target=target, args=(child,) + tuple(args))
+        self.proc = ctx.Process(target=_child_main,
+                                args=(target, child) + tuple(args))
         self.proc.start()
 
     def result(self):
@@ -2541,41 +2803,6 @@ class CliTgen(Child):
               transfers=s["transfers_done"], drop_net=s["drop_net"],
               retransmits=s["retransmits"],
               per_host=json.dumps(xfer, separators=(",", ":")))
-
-
-def _await_alone(t0, gate):
-    """The phase's wall from `t0`; then, given a `gate` (two Events), set
-    its first (the run is done) and wait for its second (the card is
-    free) -> (wall, seconds waited)."""
-    wall = time.perf_counter() - t0
-    if gate is None:
-        return wall, 0.0
-    ready, go = gate
-    ready.set()
-    go.wait()
-    return wall, round(time.perf_counter() - t0 - wall, 3)
-
-
-def _socks10k_child(conn, gate):
-    """A child process: phases 5 and 23 -> None, or the failure."""
-    from shadow_tpu_torch.engine import defs
-    try:
-        census_phase(socks10k_phase(defs, gate))
-        conn.send(None)
-    except BaseException as e:
-        conn.send(f"{type(e).__name__}: {e}")
-        raise
-
-
-def _tgen1k_child(conn, gate):
-    """A child process: phase 6 -> None, or the failure."""
-    from shadow_tpu_torch.engine import defs
-    try:
-        tgen1k_phase(defs, gate)
-        conn.send(None)
-    except BaseException as e:
-        conn.send(f"{type(e).__name__}: {e}")
-        raise
 
 
 def _tgen_gpu_cpu_child(conn):

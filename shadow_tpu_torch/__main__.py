@@ -42,8 +42,14 @@ worker-thread knob; parallel.shard, same results bit for bit);
 ``--shape-fingerprint`` prints the scenario's shape identity as one
 JSON line and exits without running. ``batch`` runs same-shape scenarios as lanes of one program
 (serving.batch), ``fleet`` queues and supervises sweeps (fleet.cli).
-``--aot-cache`` and ``--prewarm`` are refused (exit 2): eager torch has
-no executable to cache.
+``--aot-cache DIR`` keeps the port's native kernel library in DIR
+(serving.aotcache; ``SHADOW_TPU_TORCH_AOT_CACHE`` also sets it; without
+either it builds once into ``build/kernels``), and ``--prewarm`` builds
+or loads it and captures the chunk's CUDA graph without running,
+printing one JSON line (the fleet's pre-warm child; on the CPU there is
+nothing to capture: ``"captured": false``). A run on cuda replays one
+captured graph a chunk; the summary's ``path`` says so (``eager`` and
+``path_reason`` for hosted apps, a mesh, ``--passcope`` or the CPU).
 """
 
 from __future__ import annotations
@@ -129,7 +135,6 @@ def main(argv=None) -> int:
     if argv_in[:1] == ["batch"]:
         from .serving.batch import main as batch_main
         return batch_main(argv_in[1:])
-    from .serving import NO_EXECUTABLE_CACHE
     p = argparse.ArgumentParser(prog="python -m shadow_tpu_torch",
                                 description=__doc__.splitlines()[0])
     p.add_argument("config", nargs="?", help="shadow.config.xml path")
@@ -263,9 +268,16 @@ def main(argv=None) -> int:
                         "the chunk) as one JSON line and exit without "
                         "running")
     p.add_argument("--aot-cache", default=None, metavar="DIR",
-                   help="refused: " + NO_EXECUTABLE_CACHE)
+                   help="keep the native kernel library (nvcc-built, "
+                        "keyed by its sources, nvcc, torch and the "
+                        "device) in DIR, so a later process loads it "
+                        "instead of building (serving.aotcache; "
+                        "SHADOW_TPU_TORCH_AOT_CACHE also sets it)")
     p.add_argument("--prewarm", action="store_true",
-                   help="refused: " + NO_EXECUTABLE_CACHE)
+                   help="build or load the kernel library and capture "
+                        "the scenario's chunk graph, print one JSON line "
+                        "and exit WITHOUT running (the fleet's pre-warm "
+                        "child)")
     p.add_argument("--until-complete", action="store_true",
                    help="run the simulation in a child process and "
                         "re-run it with --resume latest after a crash "
@@ -280,9 +292,9 @@ def main(argv=None) -> int:
                         "doubling to a 60 s cap")
     args = p.parse_args(argv)
 
-    if args.aot_cache is not None or args.prewarm:
-        p.error(f"{'--aot-cache' if args.aot_cache is not None else '--prewarm'}"
-                f": {NO_EXECUTABLE_CACHE}")
+    if args.aot_cache:
+        from .serving import aotcache as AC
+        AC.install(args.aot_cache)
     if args.checkpoint and not args.checkpoint_every:
         p.error("--checkpoint requires --checkpoint-every SEC")
     if args.until_complete:
@@ -435,6 +447,16 @@ def main(argv=None) -> int:
     if args.workers:
         from .parallel.shard import make_mesh
         mesh = make_mesh(args.workers, args.device)
+    if args.prewarm:
+        from .obs import digest as DG
+        from .serving import aotcache as AC
+        info = sim.prewarm(mesh=mesh, digest_every=(
+            (args.digest_every or DG.DEFAULT_EVERY) if args.digest else 0))
+        info["native_cache"] = ("miss" if AC.STATS["builds"] else
+                                "hit" if AC.STATS["disk_hits"] else "none")
+        info["cache_dir"] = args.aot_cache
+        print(json.dumps(info))
+        return 0
     # --perf collects the spans itself (in memory without --trace) and
     # reads them after the run
     own_perf_tr = False

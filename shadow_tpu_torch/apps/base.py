@@ -4,13 +4,16 @@ Counterpart of ``shadow_tpu/apps/base.py``. The EV_APP handler calls
 :func:`dispatch`, which runs each row's registered app. App calling
 convention:
 
-    app(st, hp, sh, m, now, wake, branches)
+    app(st, hp, sh, m, now, wake, br, plan)
 
 ``m`` masks the rows whose wake this app handles, ``wake`` is the
 ``[H, PKT_WORDS]`` wake packet (ACK = reason, SEQ = socket or -1) and
-``branches`` is the set of branch indices (the reason clipped to
-[0, 6]: WAKE_START .. WAKE_SENT) that at least one of those rows takes: a branch no row takes
-is skipped, which saves its launches and changes no row. Apps keep
+``br[b]`` is the predicate that some of those rows take branch ``b``
+(the reason clipped to [0, 6]: WAKE_START .. WAKE_SENT): an app runs
+each branch under ``core.flow.when(br[b])``, so a branch no row takes
+is skipped, which saves its launches and changes no row (a bool under
+the eager flow, a device scalar in a captured chunk). ``plan`` is the
+chunk's ``engine.window.Plan`` (the static loop bounds). Apps keep
 their state in ``app_r`` and read ``app_cfg`` through :func:`regs` and
 :func:`cfg_words`, the ``[:, 0]`` views: with several processes per
 host, :func:`dispatch` hands the apps a single-process copy of each
@@ -23,6 +26,7 @@ import dataclasses
 
 import torch
 
+from ..core import flow as FL
 from ..core import rng as R
 from ..core.rowops import rget, rset_where
 from ..engine import equeue
@@ -116,9 +120,10 @@ def _ported_apps():
             APP_SOCKS_PROXY: app_socks_proxy, APP_HOSTED: hosted_wake}
 
 
-def dispatch(st, hp, sh, m, now, wake, present, proc=None):
-    """EV_APP entry: run each masked row's app. ``present`` is the set
-    of (app kind, branch) pairs some row takes in this pass.
+def dispatch(st, hp, sh, m, now, wake, present, proc=None, plan=None):
+    """EV_APP entry: run each masked row's app. ``present`` maps each
+    app kind of the scenario to its seven branch predicates (some row
+    of this pass takes that branch); an app with none runs nothing.
 
     With one process per host (``proc`` None) the apps run on the
     state itself. Otherwise ``proc`` is each row's waking process
@@ -138,8 +143,12 @@ def dispatch(st, hp, sh, m, now, wake, present, proc=None):
             app_cfg=hp.app_cfg[rows, ix].unsqueeze(1))
     kind = vhp.app_kind[:, 0]
     for k, app in _ported_apps().items():
-        branches = {b for kk, b in present if kk == k}
-        if branches:
-            app(vst, vhp, sh, m & (kind == k), now, wake, branches)
+        br = present.get(k)
+        if br is None:
+            continue
+
+        @FL.when(FL.any_of(*br))
+        def _():
+            app(vst, vhp, sh, m & (kind == k), now, wake, br, plan)
     if proc is not None:
         rset_where(st.app_r, proc, m, vst.app_r[:, 0])

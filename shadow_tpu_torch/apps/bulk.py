@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import flow as FL
 from ..core.rowops import col_add, rget
 from ..engine.defs import ST_APP_DONE, ST_XFER_DONE
 from ..net import packet as P
@@ -31,15 +32,21 @@ def _connect(st, hp, sh, m, now):
     set_reg(st, m, 0, slot.to(torch.int64))
 
 
-def app_bulk(st, hp, sh, m, now, wake, branches):
+def app_bulk(st, hp, sh, m, now, wake, br, plan):
     b = branch_of(wake)
     c = cfg_words(hp)
     sock = regs(st)[:, 0].to(torch.int32)
-    if 0 in branches or 1 in branches:      # WAKE_START, WAKE_TIMER
+
+    @FL.when(FL.any_of(br[0], br[1]))       # WAKE_START, WAKE_TIMER
+    def _():
         _connect(st, hp, sh, m & ((b == 0) | (b == 1)), now)
-    if 3 in branches:                       # WAKE_CONNECTED
+
+    @FL.when(br[3])                         # WAKE_CONNECTED
+    def _():
         tcp_write(st, m & (b == 3), now, sock, c[:, 2])
-    if 6 in branches:                       # WAKE_SENT: transfer done
+
+    @FL.when(br[6])                         # WAKE_SENT: transfer done
+    def _():
         ms = m & (b == 6)
         if netscope.on(st):
             # completion time runs from the handshake stamp, read
@@ -54,21 +61,27 @@ def app_bulk(st, hp, sh, m, now, wake, branches):
         timer(st, ms & ~done, now + c[:, 4])
 
 
-def app_bulk_server(st, hp, sh, m, now, wake, branches):
+def app_bulk_server(st, hp, sh, m, now, wake, br, plan):
     b = branch_of(wake)
     slot = wake[:, P.SEQ]
-    if 0 in branches:                       # WAKE_START: listen
+
+    @FL.when(br[0])                         # WAKE_START: listen
+    def _():
         ms = m & (b == 0)
         lslot, _ok = tcp_listen(st, ms, cfg_words(hp)[:, 1])
         set_reg(st, ms, 0, lslot.to(torch.int64))
     fresh = wake[:, P.WND] == rget(st.sk_timer_gen, slot)
     tag = rget(st.sk_syn_tag, slot)
-    if 5 in branches:                       # WAKE_ACCEPT: serve a GET
+
+    @FL.when(br[5])                         # WAKE_ACCEPT: serve a GET
+    def _():
         size = (tag & ((1 << 30) - 1)).to(torch.int64)
         get = m & (b == 5) & fresh & ((tag & (1 << 30)) == 0) & (size > 0)
         tcp_write(st, get, now, slot, size)
         tcp_close_call(st, get, now, slot)
-    if 4 in branches:                       # WAKE_EOF: a PUT finished
+
+    @FL.when(br[4])                         # WAKE_EOF: a PUT finished
+    def _():
         # EOFs on served-GET children are teardown noise (the fetcher
         # counts those); a recycled slot's tag belongs to its new owner
         served_get = (tag != 0) & ((tag & (1 << 30)) == 0)

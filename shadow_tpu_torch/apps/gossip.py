@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import flow as FL
 from ..core.rowops import col_add
 from ..engine.defs import ST_RTT_COUNT, ST_RTT_SUM_US, ST_XFER_DONE
 from ..net import packet as P
@@ -48,25 +49,31 @@ def _relay(st, hp, m, now, height):
                    aux=aux)
 
 
-def app_gossip(st, hp, sh, m, now, wake, branches):
+def app_gossip(st, hp, sh, m, now, wake, br, plan):
     b = branch_of(wake)
     c = cfg_words(hp)
     interval = c[:, 3]
-    if 0 in branches:                       # WAKE_START
+
+    @FL.when(br[0])                         # WAKE_START
+    def _():
         ms = m & (b == 0)
         slot, _ok = udp_open(st, ms, port=c[:, 1].to(torch.int32))
         set_reg(st, ms, 0, slot.to(torch.int64))
         # r5 = the common start epoch: height h is mined at r5 + h*interval
         set_reg(st, ms, 5, now)
         timer(st, ms & (c[:, 4] != 0), now + interval)
-    if 1 in branches:                       # WAKE_TIMER: mine and gossip
+
+    @FL.when(br[1])                         # WAKE_TIMER: mine and gossip
+    def _():
         mt = m & (b == 1)
         h = regs(st)[:, 4] + 1
         set_reg(st, mt, 4, h)
         set_reg(st, mt, 1, torch.maximum(regs(st)[:, 1], h))
         _relay(st, hp, mt, now, h)
         timer(st, mt, now + interval)
-    if 2 in branches:                       # WAKE_SOCKET: a block
+
+    @FL.when(br[2])                         # WAKE_SOCKET: a block
+    def _():
         h = wake[:, P.AUX].to(torch.int64)
         mf = m & (b == 2) & (h > regs(st)[:, 1])
         mined_at = regs(st)[:, 5] + h * interval

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import flow as FL
 from ..core.rng import log1p_f32
 from ..net.udp import udp_open, udp_sendto
 from .base import branch_of, cfg_words, draw, regs, set_reg, timer
@@ -42,22 +43,29 @@ def _send_to_random_peer(st, hp, m, now):
     set_reg(st, m, 1, regs(st)[:, 1] + 1)
 
 
-def app_phold(st, hp, sh, m, now, wake, branches):
+def app_phold(st, hp, sh, m, now, wake, br, plan):
     b = branch_of(wake)
-    if 0 in branches:                       # WAKE_START
+
+    @FL.when(br[0])                         # WAKE_START
+    def _():
         ms = m & (b == 0)
         slot, _ok = udp_open(st, ms, port=cfg_words(hp)[:, 1])
         set_reg(st, ms, 0, slot.to(torch.int64))
         # seed c4 initial messages at exponential offsets; the
-        # reference's per-row fori_loop bound becomes a loop over the
-        # largest bound with a per-row mask
+        # reference's per-row fori_loop bound becomes a loop to the
+        # scenario's largest bound (the plan's, clamped to the queue)
+        # with a per-row mask: a row past its own bound draws nothing
         qcap = st.eq_time.shape[1]
         n0 = cfg_words(hp)[:, 4].clamp(0, qcap)
-        for i in range(int(torch.where(ms, n0, 0).max())):
+        for i in range(plan.phold_seed):
             mi = ms & (i < n0)
             timer(st, mi, now + _exp_delay(st, hp, mi))
-    if 1 in branches:                       # WAKE_TIMER: send
+
+    @FL.when(br[1])                         # WAKE_TIMER: send
+    def _():
         _send_to_random_peer(st, hp, m & (b == 1), now)
-    if 2 in branches:                       # WAKE_SOCKET: a message
+
+    @FL.when(br[2])                         # WAKE_SOCKET: a message
+    def _():
         mm = m & (b == 2)
         timer(st, mm, now + _exp_delay(st, hp, mm))

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import flow as FL
 from ..core.rowops import col_add
 from ..core.simtime import SIMTIME_ONE_MICROSECOND
 from ..engine.defs import (ST_APP_DONE, ST_RTT_COUNT, ST_RTT_SUM_US,
@@ -42,16 +43,22 @@ def _send_ping(st, hp, m, now):
     timer(st, m & more, now + c[:, 2])
 
 
-def app_ping(st, hp, sh, m, now, wake, branches):
+def app_ping(st, hp, sh, m, now, wake, br, plan):
     b = branch_of(wake)
-    if 0 in branches:                       # WAKE_START
+
+    @FL.when(br[0])                         # WAKE_START
+    def _():
         ms = m & (b == 0)
         slot, _ok = udp_open(st, ms)
         set_reg(st, ms, 0, slot.to(torch.int64))
         _send_ping(st, hp, ms, now)
-    if 1 in branches:                       # WAKE_TIMER
+
+    @FL.when(br[1])                         # WAKE_TIMER
+    def _():
         _send_ping(st, hp, m & (b == 1), now)
-    if 2 in branches:                       # WAKE_SOCKET: the echo
+
+    @FL.when(br[2])                         # WAKE_SOCKET: the echo
+    def _():
         me = m & (b == 2)
         rtt_us = (_us31(now) - wake[:, P.AUX].to(torch.int64)) % _US_MOD
         set_reg(st, me, 2, regs(st)[:, 2] + 1)
@@ -66,13 +73,17 @@ def app_ping(st, hp, sh, m, now, wake, branches):
                 & (regs(st)[:, 2] >= limit))
 
 
-def app_ping_server(st, hp, sh, m, now, wake, branches):
+def app_ping_server(st, hp, sh, m, now, wake, br, plan):
     reason = wake[:, P.ACK]
-    if 0 in branches:
+
+    @FL.when(br[0])
+    def _():
         ms = m & (reason == WAKE_START)
         slot, _ok = udp_open(st, ms, port=cfg_words(hp)[:, 1])
         set_reg(st, ms, 0, slot.to(torch.int64))
-    if 2 in branches:
+
+    @FL.when(br[2])
+    def _():
         # echo the payload back to the sender, preserving the AUX tag
         md = m & (reason == WAKE_SOCKET)
         udp_sendto(st, hp, md, now, wake[:, P.SEQ], dst_host=wake[:, P.SRC],

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import flow as FL
 from ..core.rowops import col_add, rget, rset_where
 from ..engine.defs import (ST_APP_DONE, ST_CHAIN_SHORT, ST_RTT_COUNT,
                            ST_RTT_SUM_US, ST_XFER_DONE)
@@ -41,7 +42,9 @@ _I64 = torch.int64
 
 
 def pack_tag(target_host, size_u4k, hops=0):
-    hops = torch.as_tensor(hops, device=target_host.device).to(_I32)
+    if not torch.is_tensor(hops):
+        hops = torch.full_like(target_host, hops)
+    hops = hops.to(_I32)
     return (((hops & 0x3) << TAG_HOPS_SHIFT) |
             ((target_host.to(_I32) & TAG_HOST_MASK) << TAG_HOST_SHIFT) |
             (size_u4k.to(_I32) & TAG_U4K_MASK))
@@ -63,7 +66,7 @@ def _rand_in(st, hp, m, lo, hi, skip_self=False):
                                n - 1)).to(_I32)
 
 
-def app_socks_client(st, hp, sh, m, now, wake, branches):
+def app_socks_client(st, hp, sh, m, now, wake, br, plan):
     b = branch_of(wake)
     c = cfg_words(hp)
     slot = wake[:, P.SEQ]
@@ -71,7 +74,8 @@ def app_socks_client(st, hp, sh, m, now, wake, branches):
     pause = c[:, 7] & ((1 << 56) - 1)
     hops = (c[:, 7] >> 56).to(_I32)
 
-    if 0 in branches or 1 in branches:      # START, TIMER: a fetch
+    @FL.when(FL.any_of(br[0], br[1]))       # START, TIMER: a fetch
+    def _():
         mf = m & ((b == 0) | (b == 1))
         proxy = _rand_in(st, hp, mf, c[:, 0], c[:, 1])
         server = _rand_in(st, hp, mf, c[:, 3], c[:, 4])
@@ -84,7 +88,8 @@ def app_socks_client(st, hp, sh, m, now, wake, branches):
         # connect failure: retry after the pause
         timer(st, mf & ~ok, now + pause)
 
-    if 4 in branches:                       # EOF: the response is in
+    @FL.when(br[4])                         # EOF: the response is in
+    def _():
         me = m & (b == 4) & fresh & (slot == regs(st)[:, 0].to(_I32))
         # a refused relay closes with zero bytes delivered: retry, and
         # never count it as a fetch
@@ -105,7 +110,7 @@ def app_socks_client(st, hp, sh, m, now, wake, branches):
         timer(st, me & ~fin, now + pause)
 
 
-def app_socks_proxy(st, hp, sh, m, now, wake, branches):
+def app_socks_proxy(st, hp, sh, m, now, wake, br, plan):
     b = branch_of(wake)
     c = cfg_words(hp)
     slot = wake[:, P.SEQ]
@@ -113,12 +118,14 @@ def app_socks_proxy(st, hp, sh, m, now, wake, branches):
     paired = rget(st.sk_app_ref, slot)
     is_child = rget(st.sk_parent, slot) >= 0     # client-facing side
 
-    if 0 in branches:                       # START: listen
+    @FL.when(br[0])                         # START: listen
+    def _():
         ms = m & (b == 0)
         lslot, ok = tcp_listen(st, ms, c[:, 1].to(_I32))
         set_reg(st, ms, 0, torch.where(ok, lslot.to(_I64) + 1, 0))
 
-    if 5 in branches:                       # ACCEPT: SOCKS CONNECT
+    @FL.when(br[5])                         # ACCEPT: SOCKS CONNECT
+    def _():
         ma = m & (b == 5)
         tag = rget(st.sk_syn_tag, slot)
         hops = (tag >> TAG_HOPS_SHIFT) & 0x3
@@ -146,12 +153,14 @@ def app_socks_proxy(st, hp, sh, m, now, wake, branches):
         # onward table full: refuse the client
         tcp_close_call(st, mg & ~ok, now, slot)
 
-    if 2 in branches:                       # SOCKET: relay response bytes
+    @FL.when(br[2])                         # SOCKET: relay response bytes
+    def _():
         ln = wake[:, P.LEN].to(_I64)
         mr = m & (b == 2) & fresh & ~is_child & (paired >= 0) & (ln > 0)
         tcp_write(st, mr, now, paired, ln)
 
-    if 4 in branches:                       # EOF: close the pair
+    @FL.when(br[4])                         # EOF: close the pair
+    def _():
         me = m & (b == 4) & fresh
         rset_where(st.sk_app_ref, slot, me, -1)
         rset_where(st.sk_app_ref, paired, me, -1)

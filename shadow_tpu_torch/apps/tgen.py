@@ -30,6 +30,8 @@ from xml.etree import ElementTree
 import numpy as np
 import torch
 
+from ..core import flow as FL
+from ..core.kernels import pass_flags
 from ..core.rowops import Slot, col_add, mput, rget, rset_where
 from ..core.simtime import SIMTIME_ONE_SECOND
 from ..engine.defs import (ST_APP_DONE, ST_TGEN_ABORT, ST_TGEN_DROP,
@@ -383,21 +385,24 @@ def _pick(u, off, cnt):
     return off + torch.minimum((u * cnt.to(torch.float32)).to(_I64), cnt - 1)
 
 
-def _exec_node(st, hp, sh, now, ex, cur, nd, kinds):
+def _exec_node(st, hp, sh, now, ex, cur, nd, kinds, proceed):
     """Execute the entry action of node `cur` on the rows in `ex` whose
-    node kind is in `kinds` (the kinds some row of `ex` holds) -> [H]
-    proceed: the walk continues through all the node's out-edges. A
-    row that does not proceed parked its cursor on a timer or a socket,
-    or the cursor ended (end, synchronize)."""
+    node kind `kinds[k]` says some row of `ex` holds, or-ing into the
+    [H] `proceed` (in place) the rows whose walk continues through all
+    the node's out-edges. A row that does not proceed parked its cursor
+    on a timer or a socket, or the cursor ended (end, synchronize)."""
     kind = nd[:, COL_KIND].clamp(0, 4)
-    proceed = torch.zeros_like(ex)
-    if NK_START in kinds:
+
+    @FL.when(kinds[NK_START])
+    def _():
         mk = ex & (kind == NK_START)
         delay = nd[:, COL_B]
         wait = mk & (delay > 0)
         timer(st, wait, now + delay, aux=cur)
-        proceed |= mk & ~wait
-    if NK_TRANSFER in kinds:
+        proceed.logical_or_(mk & ~wait)
+
+    @FL.when(kinds[NK_TRANSFER])
+    def _():
         mk = ex & (kind == NK_TRANSFER)
         pcnt = nd[:, COL_PCNT].clamp(min=1)
         u = draw(st, hp, mk)
@@ -416,7 +421,9 @@ def _exec_node(st, hp, sh, now, ex, cur, nd, kinds):
         # socket table full: retry the transfer after 1 s (a negative
         # aux re-enters the node itself)
         timer(st, mk & ~ok, now + SIMTIME_ONE_SECOND, aux=-(cur + 1))
-    if NK_PAUSE in kinds:
+
+    @FL.when(kinds[NK_PAUSE])
+    def _():
         mk = ex & (kind == NK_PAUSE)
         fixed = nd[:, COL_A]
         drawn = fixed < 0
@@ -427,8 +434,10 @@ def _exec_node(st, hp, sh, now, ex, cur, nd, kinds):
         t = torch.where(drawn, pool, fixed)
         wait = mk & (t > 0)
         timer(st, wait, now + t, aux=cur)
-        proceed |= mk & ~wait
-    if NK_END in kinds:
+        proceed.logical_or_(mk & ~wait)
+
+    @FL.when(kinds[NK_END])
+    def _():
         mk = ex & (kind == NK_END)
         r = regs(st)
         a, b, c = nd[:, COL_A], nd[:, COL_B], nd[:, COL_C]
@@ -438,8 +447,10 @@ def _exec_node(st, hp, sh, now, ex, cur, nd, kinds):
         stop = mk & met
         set_reg(st, stop, REG_DONE, 1)
         col_add(st.stats, ST_APP_DONE, stop)
-        proceed |= mk & ~met
-    if NK_SYNC in kinds:
+        proceed.logical_or_(mk & ~met)
+
+    @FL.when(kinds[NK_SYNC])
+    def _():
         # join barrier: fires once as many cursors as the node has
         # in-edges have arrived, then resets so loops re-arm
         mk = ex & (kind == NK_SYNC)
@@ -447,14 +458,14 @@ def _exec_node(st, hp, sh, now, ex, cur, nd, kinds):
         cnt = rget(st.tgen_sync, ref) + 1
         fire = cnt >= nd[:, COL_A].to(_I32)
         rset_where(st.tgen_sync, ref, mk, torch.where(fire, 0, cnt))
-        proceed |= mk & fire
-    return proceed
+        proceed.logical_or_(mk & fire)
 
 
 def _push_succs(st, sh, stack, sp, m, cur, n_edges: int):
     """Push node `cur`'s successors on the cursor stack of each row in
-    `m` (the rows' edge counts are at most `n_edges`); a push past
-    STACK_CAP drops the branch and counts it in ST_TGEN_DROP."""
+    `m` (in place; the rows' edge counts are at most `n_edges`, the
+    scenario's largest out-degree); a push past STACK_CAP drops the
+    branch and counts it in ST_TGEN_DROP."""
     nd = _node(sh, cur)
     eoff = nd[:, COL_EOFF].to(_I32)
     ecnt = nd[:, COL_ECNT].to(_I32)
@@ -464,14 +475,13 @@ def _push_succs(st, sh, stack, sp, m, cur, n_edges: int):
         mj = m & (j < ecnt)
         tgt = _tab(sh, "tgen_edges", (eoff + j).clamp(0, last).to(_I64))
         can = sp < STACK_CAP
-        stack = torch.where(mj.unsqueeze(1) & (at == sp.unsqueeze(1)),
-                            tgt.unsqueeze(1), stack)
-        sp = sp + (mj & can).to(_I32)
+        stack.copy_(torch.where(mj.unsqueeze(1) & (at == sp.unsqueeze(1)),
+                                tgt.unsqueeze(1), stack))
+        sp.add_((mj & can).to(_I32))
         col_add(st.stats, ST_TGEN_DROP, mj & ~can)
-    return stack, sp
 
 
-def _walk(st, hp, sh, now, mode, node):
+def _walk(st, hp, sh, now, mode, node, n_edges: int):
     """Run each row's walk until every cursor has blocked or ended.
 
     `mode` says how a row's walk starts at `node`: _ENTER executes the
@@ -481,7 +491,13 @@ def _walk(st, hp, sh, now, mode, node):
     a _SUCC row's first iteration only pushes the successors, as the
     reference does before its loop, so it gets one iteration more. A
     row stops after 4 * N + 4 * STACK_CAP iterations (N: rows of the
-    node table); the cursors it has left count in ST_TGEN_DROP."""
+    node table); the cursors it has left count in ST_TGEN_DROP.
+
+    The iterations are a ``flow.while_``: each reads which node kinds
+    execute (codes 0-4) and whether any row pops a cursor at all (5:
+    popped, not executed) through ``kernels.pass_flags``, and the
+    cursor stacks, stack pointers and iteration count are updated in
+    place. `n_edges` is the scenario's largest out-degree."""
     H = mode.shape[0]
     dev = mode.device
     stack = torch.full((H, STACK_CAP), -1, dtype=_I32, device=dev)
@@ -490,31 +506,30 @@ def _walk(st, hp, sh, now, mode, node):
     succ = mode == _SUCC
     cap = 4 * _rows(sh, "tgen_nodes") + 4 * STACK_CAP
     lim = cap + succ.to(_I32)
-    g = 0
-    while True:
+    g = torch.zeros((), dtype=_I32, device=dev)
+
+    def step():
         active = (sp > 0) & (g < lim)
         cur = stack.gather(1, (sp - 1).clamp(min=0).to(_I64).unsqueeze(1)
                            ).squeeze(1)
         nd = _node(sh, cur)
         skip = succ & (g == 0)
         ex = active & ~skip & (regs(st)[:, REG_DONE] == 0)
-        # one host sync: which node kinds execute (codes 0-4), whether
-        # any row pops a cursor at all (5: popped, not executed), and
-        # how many successors a row can push at most
         code = torch.where(ex, nd[:, COL_KIND].clamp(0, 4),
-                           torch.where(active, 5, 6))
-        flags = torch.zeros(7, dtype=_I64, device=dev).scatter_(
-            0, code.to(_I64), 1)
-        flags[6] = torch.where(active, nd[:, COL_ECNT], 0).max()
-        vals = flags.tolist()
-        if not any(vals[:6]):
-            break
-        kinds = {k for k in range(5) if vals[k]}
-        sp = sp - active.to(_I32)
+                           torch.where(active, 5, 6)).to(_I32)
+        flags = pass_flags(code, None, 7, 0, 6,
+                           handle=FL.loop_handle())
+        kinds = FL.read(flags)
+        go = kinds[7]
+        if go is False:
+            return False
+        sp.sub_(active.to(_I32))
         proceed = active & skip
-        proceed |= _exec_node(st, hp, sh, now, ex, cur, nd, kinds)
-        stack, sp = _push_succs(st, sh, stack, sp, proceed, cur, vals[6])
-        g += 1
+        _exec_node(st, hp, sh, now, ex, cur, nd, kinds, proceed)
+        _push_succs(st, sh, stack, sp, proceed, cur, n_edges)
+        g.add_(1)
+        return FL.result(go)
+    FL.cur().while_(True, step)
     # rows stopped by the iteration cap: their queued cursors are lost
     st.stats[:, ST_TGEN_DROP] += sp.to(_I64)
 
@@ -542,7 +557,7 @@ def _observe_completion(st, m, now, slot):
         netscope.observe(st, m, netscope.NS_COMPLETION, dur_us)
 
 
-def app_tgen(st, hp, sh, m, now, wake, branches):
+def app_tgen(st, hp, sh, m, now, wake, br, plan):
     b = branch_of(wake)
     slot = wake[:, P.SEQ]
     sl = Slot(slot, st.sk_used.shape[1])
@@ -558,14 +573,16 @@ def app_tgen(st, hp, sh, m, now, wake, branches):
         mode.copy_(torch.where(mw, how, mode))
         node.copy_(torch.where(mw, at.to(_I32), node))
 
-    if 0 in branches:                       # START: listen, walk
+    @FL.when(br[0])                         # START: listen, walk
+    def _():
         ms = m & (b == 0)
         port = _node(sh, start)[:, COL_A]
         tcp_listen(st, ms & (port > 0), port.to(_I32))
         set_reg(st, ms, REG_T0, now)
         walk_from(ms, _ENTER, start)
 
-    if 1 in branches:                       # TIMER: watchdog or walk
+    @FL.when(br[1])                         # TIMER: watchdog or walk
+    def _():
         mt = m & (b == 1)
         aux = wake[:, P.AUX]
         wd = mt & (aux == WD_AUX)
@@ -589,19 +606,22 @@ def app_tgen(st, hp, sh, m, now, wake, branches):
         walk_from(mw, torch.where(aux >= 0, _SUCC, _ENTER),
                   torch.where(aux >= 0, aux, -aux - 1))
 
-    if 3 in branches:                       # CONNECTED: a PUT writes
+    @FL.when(br[3])                         # CONNECTED: a PUT writes
+    def _():
         tag = _index(st.sk_syn_tag, slot)
         put = m & (b == 3) & ((tag & TAG_PUT) != 0) & is_client
         tcp_write(st, put, now, sl, (tag & TAG_SIZE_MASK).to(_I64))
         tcp_close_call(st, put, now, sl)
 
-    if 5 in branches:                       # ACCEPT: serve a GET
+    @FL.when(br[5])                         # ACCEPT: serve a GET
+    def _():
         tag = _index(st.sk_syn_tag, slot)
         get = m & (b == 5) & fresh & ((tag & TAG_PUT) == 0)
         tcp_write(st, get, now, sl, (tag & TAG_SIZE_MASK).to(_I64))
         tcp_close_call(st, get, now, sl)
 
-    if 4 in branches:                       # EOF on a PUT-receiving child
+    @FL.when(br[4])                         # EOF on a PUT-receiving child
+    def _():
         # EOFs on served-GET children and on finished client sockets
         # are teardown noise
         put_child = (m & (b == 4) & ~is_client & fresh
@@ -611,7 +631,8 @@ def app_tgen(st, hp, sh, m, now, wake, branches):
         tcp_close_call(st, put_child, now, sl)
         col_add(st.stats, ST_XFER_DONE, put_child)
 
-    if 4 in branches or 6 in branches:      # EOF, SENT: a transfer done
+    @FL.when(FL.any_of(br[4], br[6]))       # EOF, SENT: a transfer done
+    def _():
         mf = m & ((b == 4) | (b == 6)) & is_client
         owner = sl.get(st.sk_app_ref)
         size = _node(sh, owner)[:, COL_B]
@@ -624,5 +645,6 @@ def app_tgen(st, hp, sh, m, now, wake, branches):
         col_add(st.stats, ST_XFER_DONE, mf)
         walk_from(mf, _SUCC, owner)
 
-    if branches & {0, 1, 4, 6}:
-        _walk(st, hp, sh, now, mode, node)
+    @FL.when(FL.any_of(br[0], br[1], br[4], br[6]))
+    def _():
+        _walk(st, hp, sh, now, mode, node, plan.tgen_deg)

@@ -22,9 +22,9 @@ several arrays at one slot builds its ``Slot`` once.
 
 from __future__ import annotations
 
-from functools import cached_property
-
 import torch
+
+from . import flow as FL
 
 
 def _bcast(mask, like):
@@ -39,25 +39,40 @@ def _trail(mask, arr):
 
 class Slot:
     """One slot index per row (``idx`` [H]) into tables of width ``n``.
-    Each derived index is built on first use only."""
+    Each derived index is built on first use only, and reused only in
+    the ``core.flow`` body that built it or one nested in it: in a
+    captured chunk a sibling body may not have run."""
 
     def __init__(self, idx, n: int):
         self.idx = idx
         self.n = n
+        self._memo = {}
 
-    @cached_property
+    def _derived(self, name, make):
+        path = FL.body_path()
+        hit = self._memo.get(name)
+        if hit is not None and path[:len(hit[0])] == hit[0]:
+            return hit[1]
+        v = make()
+        self._memo[name] = (path, v)
+        return v
+
+    @property
     def ok(self):
-        return (self.idx >= 0) & (self.idx < self.n)
+        return self._derived("ok", lambda: (self.idx >= 0)
+                             & (self.idx < self.n))
 
-    @cached_property
+    @property
     def ix(self):
-        return self.idx.to(torch.int64).clamp(0, self.n - 1).unsqueeze(1)
+        return self._derived("ix", lambda: self.idx.to(torch.int64).clamp(
+            0, self.n - 1).unsqueeze(1))
 
-    @cached_property
+    @property
     def oh(self):
         # out-of-range rows match nothing: their writes are dropped
-        return (torch.arange(self.n, device=self.idx.device)
-                == self.idx.unsqueeze(1))
+        return self._derived("oh", lambda: (
+            torch.arange(self.n, device=self.idx.device)
+            == self.idx.unsqueeze(1)))
 
     def get(self, arr):
         """arr[h, idx[h]] per row (zeros out of range)."""

@@ -44,7 +44,7 @@ from . import checkpoint as ckpt
 from .faults import CrashHook, FaultInjector, compile_faults
 from .state import (EngineConfig, HostParams, Hosts, alloc_hosts,
                     make_shared)
-from .window import next_wakeup, run_windows
+from .window import make_plan, next_wakeup, run_windows, run_windows_graph
 
 
 class Preempted(RuntimeError):
@@ -112,6 +112,12 @@ class SimReport:
     mesh: dict = field(default_factory=dict)  # a mesh run: processes,
     #   the torch.distributed backend (None in one process) and the
     #   bytes its collectives staged through host memory
+    execution: dict = field(default_factory=dict)  # how the chunks ran
+    #   (Simulation.execution_path): path ("graph": one captured CUDA
+    #   graph replay a chunk; "eager"), the reason for eager, chunks,
+    #   captures and their wall, replays, the graph's pool bytes and
+    #   conditional nodes, host reads per chunk, native builds and disk
+    #   hits of the kernel library
 
     def total(self, stat: int) -> int:
         return int(self.stats[:, stat].sum())
@@ -199,6 +205,16 @@ class SimReport:
             "waste_frac": self.waste_frac,
             "shards": self.shards,
         }
+        if self.execution:
+            ex = self.execution
+            s["path"] = ex["path"]
+            if ex.get("reason"):
+                s["path_reason"] = ex["reason"]
+            s["captures"] = ex["captures"]
+            s["replays"] = ex["replays"]
+            s["host_reads_per_chunk"] = ex["host_reads_per_chunk"]
+            s["native_builds"] = ex["native_builds"]
+            s["disk_hits"] = ex["disk_hits"]
         if self.memory:
             s["mem_peak_bytes"] = int(self.memory.get("peak_bytes", 0))
             s["mem_source"] = self.memory.get("source")
@@ -495,6 +511,61 @@ class Simulation:
         self._pscope = None
         self._devices = None    # a mesh run's devices
 
+    def execution_path(self, mesh=None, passcope: bool = False,
+                       clock=None, graph: bool = True) -> tuple:
+        """("graph", None) when the chunks run as replays of one captured
+        CUDA graph — every single-device modeled run on cuda — else
+        ("eager", reason). The configuration decides, never a caught
+        error: a graph run whose capture or build fails raises.
+        ``graph=False`` asks for the eager loop on the card (the
+        graph=eager comparison)."""
+        if self.device.type != "cuda":
+            return "eager", f"device {self.device.type}"
+        if self.hosting is not None:
+            return "eager", "hosted apps (the CPU tier runs between windows)"
+        if mesh is not None:
+            return "eager", "a mesh"
+        if passcope:
+            return "eager", "passcope (its labels need eager launches)"
+        if clock is not None:
+            return "eager", "a per-phase clock"
+        if not graph:
+            return "eager", "graph=False"
+        return "graph", None
+
+    def prewarm(self, mesh=None, digest_every: int = 0) -> dict:
+        """Build or load the kernel library and capture the chunk graph
+        this scenario's run would capture, WITHOUT running it: the
+        fleet's pre-warm entry point (serving.prewarm; CLI
+        ``--prewarm``), the port of the reference's ``prewarm``. The
+        chunk shrinks to 1 under hosted apps and to the digest cadence
+        when `digest_every` > 0, as run() does. The graph goes into the
+        process's memory tier (core.jitcache), keyed by this state's
+        tensors, so this Simulation's run() replays it; a graph cannot
+        outlive its process, so the disk tier (serving.aotcache) keeps
+        the library only. On an eager path (the CPU, hosted apps, a
+        mesh) nothing is captured.
+
+        Returns {"fingerprint", "chunk", "shards", "cache_scope",
+        "captured", "path"}."""
+        from ..core import jitcache as JC
+        from ..obs.ledger import ENGINE, fingerprint_of
+        chunk = self.effective_chunk(digest_every)
+        path, why = self.execution_path(mesh)
+        out = {"fingerprint": fingerprint_of(self.cfg, engine=ENGINE),
+               "chunk": chunk,
+               "shards": 1 if mesh is None else mesh.size,
+               "cache_scope": JC.cache_scope(self.cfg, chunk),
+               "captured": False, "path": path}
+        if path == "graph":
+            from .window import chunk_graph
+            chunk_graph(self.hosts, self.hp, self.sh, self.cfg, chunk,
+                        make_plan(self.cfg, self.hp, self.sh))
+            out["captured"] = True
+        elif why:
+            out["reason"] = why
+        return out
+
     def effective_chunk(self, digest_every: int = 0) -> int:
         """Windows per run_windows call: 1 under hosted apps (the CPU
         tier runs between windows), shrunk to the digest cadence so
@@ -512,7 +583,8 @@ class Simulation:
             heartbeat_s: float = 0, logger=None, pcap_dir: str = None,
             trace: str = None, metrics: str = None,
             netscope: str = None, passcope: str = None,
-            verbose: bool = False, mesh=None) -> SimReport:
+            verbose: bool = False, mesh=None,
+            graph: bool = True) -> SimReport:
         """Run to the stop time. The state tensors are updated in place;
         the final state stays in ``self.hosts`` (``self.final_hosts``).
         `clock` is passed to ``window.run_windows`` (per-phase wall
@@ -566,7 +638,12 @@ class Simulation:
         labels (``obs.passcope``): ``SimReport.device_phases``, and
         passcope.json in that directory. Unset, ``SHADOW_TPU_PASSCOPE``
         enables it the same way (empty: ``passcope_trace``). Profiling
-        is observation only. ``SimReport.occupancy`` is always set."""
+        is observation only. ``SimReport.occupancy`` is always set.
+
+        On cuda, a single-device modeled run replays one captured CUDA
+        graph a chunk (``execution_path``; ``graph=False`` keeps the
+        eager loop), with the same results bit for bit;
+        ``SimReport.execution`` says which path ran and why."""
         if self._ran:
             raise RuntimeError("Simulation objects are single-use")
         self._ran = True
@@ -610,7 +687,7 @@ class Simulation:
                                   resume_from, resume_unchecked,
                                   digest_rewind, heartbeat_s, logger,
                                   pcap_dir, netscope, passcope, verbose,
-                                  mesh, writer)
+                                  mesh, writer, graph)
         finally:
             if self._pscope is not None:
                 # a run that raised must not leave the labels on
@@ -630,7 +707,7 @@ class Simulation:
                   checkpoint_keep, resume_from, resume_unchecked,
                   digest_rewind, heartbeat_s, logger, pcap_dir,
                   netscope, passcope, verbose, mesh=None,
-                  writer=True) -> SimReport:
+                  writer=True, graph=True) -> SimReport:
         from ..obs import digest as DG
         from ..obs import memscope as MS
         from ..obs import metrics as MT
@@ -721,6 +798,17 @@ class Simulation:
                 pcap=pcap_dir is not None, faults=inj is not None,
                 hosted=hosting is not None))
         chunk = self.effective_chunk(dg.every if dg is not None else 0)
+        from ..core import flow as FL
+        from ..core import jitcache as JC
+        from ..serving import aotcache as AC
+        path, path_why = self.execution_path(mesh, pscope is not None, clock,
+                                             graph)
+        graph = path == "graph"
+        plan = make_plan(cfg, hp, sh) if mesh is None else None
+        ex0 = (FL.STATS["host_reads"], JC.STATS["compiles"],
+               JC.STATS["compile_wall_s"], JC.STATS["replays"],
+               AC.STATS["builds"], AC.STATS["disk_hits"])
+        n_chunks = 0
         # the real stop time: a segment's Shared may carry the next
         # fault's time as its stop time instead
         stop_ns = int(sh.stop_time)
@@ -873,9 +961,13 @@ class Simulation:
             if obs_on:
                 ws0 = ws
                 c0 = _time.perf_counter_ns()
-            if ss is None:
+            if ss is None and graph:
+                ws, we, n, npass = run_windows_graph(
+                    st, hp, sh, ws, we, cfg, chunk, plan,
+                    stop=int(sh_seg.stop_time))
+            elif ss is None:
                 ws, we, n, npass = run_windows(st, hp, sh_seg, ws, we, cfg,
-                                               chunk, clock=clock)
+                                               chunk, clock=clock, plan=plan)
             else:
                 ws, we, n, sp = SH.run_windows_sharded(
                     ss, ws, we, chunk, clock=clock,
@@ -886,6 +978,7 @@ class Simulation:
                 npass = sum(sp)
             total_windows += n
             passes += npass
+            n_chunks += 1
             if pscope is not None:
                 pscope.chunk_done()
             wm.sample()
@@ -1007,7 +1100,13 @@ class Simulation:
                 # on a mesh the surgery works on the gathered state,
                 # written back with the rebuilt Shared
                 fst = st if ss is None else SH.gather(ss)
-                sh = inj.apply_batch(fst, sh)
+                new_sh = inj.apply_batch(fst, sh)
+                if graph:
+                    # the captured chunk reads the tables it saw: the
+                    # rebuilt ones are copied into them
+                    _copy_into(sh, new_sh)
+                else:
+                    sh = new_sh
                 if ss is not None:
                     SH.put_hosts(ss, fst)
                     SH.put_shared(ss, sh)
@@ -1074,6 +1173,18 @@ class Simulation:
             if nsrec.path:
                 network["path"] = nsrec.path
             nsrec.close()
+        g = JC.last_graph()
+        execution = {
+            "path": path, "reason": path_why, "chunks": n_chunks,
+            "captures": JC.STATS["compiles"] - ex0[1],
+            "capture_wall_s": JC.STATS["compile_wall_s"] - ex0[2],
+            "replays": JC.STATS["replays"] - ex0[3],
+            "pool_bytes": g.pool_bytes if graph and g else 0,
+            "nodes": dict(g.nodes) if graph and g else {},
+            "host_reads_per_chunk": ((FL.STATS["host_reads"] - ex0[0])
+                                     / n_chunks if n_chunks else 0.0),
+            "native_builds": AC.STATS["builds"] - ex0[4],
+            "disk_hits": AC.STATS["disk_hits"] - ex0[5]}
         report = SimReport(stats=stats, host_names=self.host_names,
                            sim_time_ns=sim_ns, wall_seconds=wall,
                            windows=total_windows,
@@ -1088,6 +1199,7 @@ class Simulation:
                            shards=1 if mesh is None else mesh.size,
                            shard_passes=(shard_passes if mesh is not None
                                          else []),
+                           execution=execution,
                            mesh=({} if mesh is None else {
                                "processes": mesh.size // len(mesh),
                                "backend": mesh.comm.backend,
@@ -1188,3 +1300,11 @@ def _shard_gauges(reg, ss):
     mean = sum(v[0] for v in vals) / len(vals)
     reg.gauge("shard.imbalance").set(
         max(v[0] for v in vals) / mean if mean else 0.0)
+
+
+def _copy_into(sh, new):
+    """Copy `new`'s rebuilt Shared tables into `sh`'s tensors, in place."""
+    for f in dataclasses.fields(sh):
+        a, b = getattr(sh, f.name), getattr(new, f.name)
+        if torch.is_tensor(a) and a is not b:
+            a.copy_(b)

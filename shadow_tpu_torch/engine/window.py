@@ -20,11 +20,20 @@ Counterpart of ``shadow_tpu/engine/window.py``. Each window does:
 4. **advance** — the next window opens at the global minimum next event
    (or carried arrival), with the reference's anti-livelock rule.
 
-The reference runs this as one compiled ``while_loop``; here it is a
-Python loop with host syncs: one per drain pass (``_pass_flags``: the
-loop condition and which handler branches have rows) plus one for the
-due-now NIC-TX chain, and a few per window. Moving the loop onto the
-device (a CUDA graph or a device-side loop) is ROADMAP B3.
+The reference runs a chunk of windows as one compiled ``while_loop``.
+Here the chunk (:func:`run_chunk`) is written against the current
+``core.flow``: a ``while_`` over windows holding the drain's
+``while_`` over passes, each handler branch under ``when`` on its own
+pass flag (``core.kernels.pass_flags``), the exchange under ``when`` on
+the outboxes' packet count, and the window boundaries in
+``core.kernels.advance``, with the window scalars on the device
+(``W``). Under the eager flow (:func:`run_windows`: the CPU, hosted
+apps, a mesh, batch lanes, passcope) each predicate is read on the
+host, one read a pass for the flags and one for the due-now NIC-TX
+chain, and two a window; on cuda a single-device run captures the
+chunk once as a CUDA graph of conditional nodes and replays it
+(:func:`run_windows_graph`), reading the host once a chunk. A value one
+conditional body hands to code after it is written in place.
 
 Not ported, because the reference holds them bit-identical to the dense
 drain and the single full sort: the compaction rung ladders, window
@@ -34,10 +43,14 @@ paths.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from ..apps.base import (N_APP_KINDS, N_BRANCHES, branch_of, dispatch,
                          process_of)
+from ..core import flow as FL
+from ..core import kernels as K
 from ..core import rng as R
 from ..core.rowops import col_add, rget, set_where
 from ..core.simtime import SIMTIME_MAX
@@ -69,6 +82,71 @@ def _app_code(app_kind, branch):
     return N_EVENT_KINDS + N_BRANCHES * app_kind + branch
 
 
+@dataclass(frozen=True)
+class Plan:
+    """What the configuration and the scenario fix for a chunk: the
+    pass-flag vector's layout (the ``_N_CODES`` codes, then the feature
+    bits, then the go-on flag), the flags the scenario can raise, the
+    app kinds present and the loops' static bounds. Built on the host
+    before the chunk (:func:`make_plan`); a captured chunk bakes it in,
+    so it is part of the graph's signature."""
+    bits: tuple          # feature bit names, in bit order
+    possible: tuple      # per flag: can some row raise it
+    kinds: tuple         # app kinds present
+    phold_seed: int      # the largest phold c4, clamped to the queue
+    tgen_deg: int        # the largest tgen out-degree
+    seed: int            # the loss roll's root
+
+    @property
+    def n_bits(self) -> int:
+        return len(self.bits)
+
+    @property
+    def i_cont(self) -> int:
+        return _N_CODES + len(self.bits)
+
+    def mask(self, name: str) -> int:
+        return 1 << self.bits.index(name) if name in self.bits else 0
+
+    def flag(self, v, name: str):
+        """Feature bit `name`'s predicate in the read flags `v`."""
+        return v[_N_CODES + self.bits.index(name)]
+
+
+def make_plan(cfg: EngineConfig, hp, sh) -> Plan:
+    """The chunk's :class:`Plan` (host reads of `hp` and `sh`)."""
+    from ..apps.base import APP_PHOLD, APP_TGEN
+    bits = (_TCP_PARTS if cfg.uses_tcp else ()) + (
+        ("blocked",) if cfg.cpu_model else ()) + (
+        ("paused",) if cfg.hostedcap > 1 else ())
+    ak = hp.app_kind
+    kinds = tuple(sorted(int(k) for k in torch.unique(ak).tolist()
+                         if int(k) in _ported_kinds()))
+    codes = [False] * _N_CODES
+    for k in (EV_PKT, EV_NIC_TX) + ((EV_TCP_TIMER, EV_TCP_CLOSE)
+                                    if cfg.uses_tcp else ()):
+        codes[k] = True
+    for k in kinds:
+        for b in range(N_BRANCHES):
+            codes[_app_code(k, b)] = True
+    n_seed = 0
+    if APP_PHOLD in kinds:
+        c4 = torch.where(ak == APP_PHOLD, hp.app_cfg[..., 4], 0)
+        n_seed = int(c4.clamp(0, cfg.qcap).max())
+    deg = 0
+    if APP_TGEN in kinds and sh.tgen_nodes.shape[0]:
+        from ..apps.tgen import COL_ECNT
+        deg = max(int(sh.tgen_nodes[:, COL_ECNT].max()), 0)
+    return Plan(bits=bits, possible=tuple(codes) + (True,) * (len(bits) + 1),
+                kinds=kinds, phold_seed=n_seed, tgen_deg=deg,
+                seed=int(sh.seed32) if sh.lanes == 1 else 0)
+
+
+def _ported_kinds():
+    from ..apps.base import _ported_apps
+    return _ported_apps()
+
+
 # --- Event handlers --------------------------------------------------------
 
 def _on_pkt(st, hp, sh, m, now, pkt, cfg: EngineConfig, parts):
@@ -83,18 +161,21 @@ def _on_pkt(st, hp, sh, m, now, pkt, cfg: EngineConfig, parts):
     if cfg.uses_tcp:
         is_tcp = (pkt[:, P.FLAGS] & P.PROTO_MASK) == P.PROTO_TCP
         mu = md & ~is_tcp
-        if parts & {"rst", "accept", "conn"}:
+
+        @FL.when(FL.any_of(parts["rst"], parts["accept"], parts["conn"]))
+        def _():
             with scope("tcp.rx"):
                 slot = sock_demux(st, pkt[:, P.SRC], pkt[:, P.SPORT],
                                   pkt[:, P.DPORT], P.PROTO_TCP)
                 tcp.tcp_rx(st, hp, sh, md & is_tcp & (slot >= 0), now,
                            slot, pkt_in, parts)
-        if "udp" not in parts:
-            return
-    with scope("udp.deliver"):
-        slot = sock_demux(st, pkt[:, P.SRC], pkt[:, P.SPORT],
-                          pkt[:, P.DPORT], P.PROTO_UDP)
-        udp_deliver(st, hp, sh, mu & (slot >= 0), now, slot, pkt_in)
+
+    @FL.when(parts.get("udp", True))
+    def _():
+        with scope("udp.deliver"):
+            slot = sock_demux(st, pkt[:, P.SRC], pkt[:, P.SPORT],
+                              pkt[:, P.DPORT], P.PROTO_UDP)
+            udp_deliver(st, hp, sh, mu & (slot >= 0), now, slot, pkt_in)
 
 
 def _tcp_features(st, kind, pkt, t):
@@ -123,47 +204,43 @@ def _tcp_features(st, kind, pkt, t):
     ])
 
 
-def _pass_flags(st, kind, app_kind, branch, pkt, t, cfg: EngineConfig,
-                blocked=None):
-    """Which codes at least one row holds this pass -> (set of codes,
-    set of TCP parts; empty when the config has no TCP; whether any row
-    is CPU-blocked, under the CPU model; whether a hosted wake ring is
-    near full, with hosted apps). The one host sync of the pass (rows
-    with no ready event hold EV_NULL)."""
-    code = torch.where(kind == EV_APP, _app_code(app_kind, branch), kind)
-    present = torch.zeros(_N_CODES, dtype=torch.int32, device=kind.device)
-    present.scatter_(0, code.to(torch.int64), 1)
-    extra = []
+def _features(st, kind, pkt, t, cfg: EngineConfig, blocked):
+    """[H] int32 words of the pass's feature bits (the Plan's ``bits``
+    order), or None when the config has none."""
+    rows = []
     if cfg.uses_tcp:
-        extra.append(_tcp_features(st, kind, pkt, t).any(1))
+        rows.append(_tcp_features(st, kind, pkt, t))
     if blocked is not None:
-        extra.append(blocked.any()[None])
+        rows.append(blocked[None])
     if cfg.hostedcap > 1:
         # the hosted pause: stop before any wake ring can overflow, so
         # the CPU tier drains it (the window re-opens after the step);
         # the floor keeps tiny rings from wedging the loop
         cap = max(st.hw_time.shape[1] - 4, 1)
-        extra.append((st.hw_cnt.max() >= cap)[None])
-    if extra:
-        present = torch.cat([present] + [e.to(torch.int32) for e in extra])
-    vals = present.tolist()
-    codes = {i for i, v in enumerate(vals[:_N_CODES]) if v}
-    parts = {n for n, v in zip(_TCP_PARTS, vals[_N_CODES:]) if v}
-    rest = vals[_N_CODES + (len(_TCP_PARTS) if cfg.uses_tcp else 0):]
-    any_blocked = blocked is not None and bool(rest.pop(0))
-    paused = cfg.hostedcap > 1 and bool(rest.pop(0))
-    return codes, parts, any_blocked, paused
+        rows.append((st.hw_cnt >= cap)[None])
+    if not rows:
+        return None
+    f = torch.cat(rows).to(torch.int32)
+    bit = torch.arange(f.shape[0], dtype=torch.int32, device=f.device)
+    return (f << bit[:, None]).sum(0, dtype=torch.int32)
 
 
-def step_all_hosts(st, hp, sh, wend, cfg: EngineConfig,
-                   lane_passes=None) -> bool:
+def step_all_hosts(st, hp, sh, wend, cfg: EngineConfig, plan: Plan,
+                   lane_passes=None, W=None):
     """One lockstep pass: every host whose earliest event lies below
-    `wend` pops and runs it. Returns False, changing nothing, when no
-    host has one, or when a hosted wake ring is near full.
+    `wend` pops and runs it. The pass's flags (``core.kernels.
+    pass_flags``) say which handler branches have rows; each branch runs
+    under ``flow.when`` on its own flag. Returns the go-on flag: under
+    the eager flow a bool, False (having changed nothing) when no host
+    has an event below `wend` or a hosted wake ring is near full; under
+    a captured flow ``flow.result`` (the kernel set the pass loop's
+    handle), the pass with nothing to run changing nothing.
 
-    `wend` is an int, or a [rows] tensor holding each row's own window
-    end (stacked lanes); `lane_passes` ([B] int64), when given, counts
-    the passes in which each lane had a row to step."""
+    `wend` is an int, a device scalar, or a [rows] tensor holding each
+    row's own window end (stacked lanes); `lane_passes` ([B] int64),
+    when given, counts the passes in which each lane had a row to step;
+    `W` (the window scalars), when given, counts the pass in
+    W[W_PASSES]."""
     slot, t = equeue.q_min(st)
     ready = t < wend
     stepped = ready
@@ -184,36 +261,56 @@ def step_all_hosts(st, hp, sh, wend, cfg: EngineConfig,
                    & (st.cpu_avail - t > hp.cpu_threshold))
         ready = ready & ~blocked
         pop_kind, kind = kind, torch.where(blocked, EV_NULL, kind)
-    flags, parts, any_blocked, paused = _pass_flags(
-        st, kind, app_kind, branch_of(pkt), pkt, t, cfg, blocked)
-    flags.discard(EV_NULL)
-    if paused or (not flags and not any_blocked):
+    code = torch.where(kind == EV_APP,
+                       _app_code(app_kind, branch_of(pkt)), kind)
+    present = K.pass_flags(code.to(torch.int32),
+                           _features(st, kind, pkt, t, cfg, blocked),
+                           _N_CODES, plan.n_bits, EV_NULL,
+                           plan.mask("blocked"), plan.mask("paused"),
+                           handle=FL.loop_handle())
+    v = FL.read(present, plan.possible)
+    cont = v[plan.i_cont]
+    if cont is False:
         return False
+    if W is not None:
+        FL.count(W[K.W_PASSES:K.W_PASSES + 1],
+                 present[plan.i_cont:plan.i_cont + 1])
     if lane_passes is not None:
         lane_passes += stepped.view(lane_passes.shape[0], -1).any(1)
+    parts = {n: plan.flag(v, n) for n in _TCP_PARTS if n in plan.bits}
 
-    if any_blocked:
-        equeue.q_clear_slot(st, blocked, slot)
-        equeue.q_push(st, blocked, torch.maximum(st.cpu_avail, t + 1),
-                      pop_kind, pkt)
+    if cfg.cpu_model:
+        @FL.when(plan.flag(v, "blocked"))
+        def _():
+            equeue.q_clear_slot(st, blocked, slot)
+            equeue.q_push(st, blocked, torch.maximum(st.cpu_avail, t + 1),
+                          pop_kind, pkt)
     equeue.q_clear_slot(st, ready, slot)
-    apps = {((c - N_EVENT_KINDS) // N_BRANCHES,
-             (c - N_EVENT_KINDS) % N_BRANCHES)
-            for c in flags if c >= N_EVENT_KINDS}
-    if apps:
-        dispatch(st, hp, sh, kind == EV_APP, t, pkt, apps, proc)
-    if EV_PKT in flags:
+    if plan.kinds:
+        dispatch(st, hp, sh, kind == EV_APP, t, pkt,
+                 {k: [v[_app_code(k, b)] for b in range(N_BRANCHES)]
+                  for k in plan.kinds}, proc, plan)
+
+    @FL.when(v[EV_PKT])
+    def _():
         _on_pkt(st, hp, sh, kind == EV_PKT, t, pkt, cfg, parts)
-    if EV_NIC_TX in flags:
+
+    @FL.when(v[EV_NIC_TX])
+    def _():
         with scope("nic.tx"):
             nic.on_tx(st, hp, sh, kind == EV_NIC_TX, t, wend, cfg.qdisc,
-                      tcp=cfg.uses_tcp, pull_tcp="pull" in parts)
-    if cfg.uses_tcp and EV_TCP_TIMER in flags:
-        with scope("tcp.timer"):
-            tcp.on_tcp_timer(st, hp, sh, kind == EV_TCP_TIMER, t, wend,
-                             pkt, expired="rto" in parts)
-    if cfg.uses_tcp and EV_TCP_CLOSE in flags:
-        tcp.on_tcp_close(st, hp, sh, kind == EV_TCP_CLOSE, t, wend, pkt)
+                      tcp=cfg.uses_tcp, pull_tcp=parts.get("pull", False))
+    if cfg.uses_tcp:
+        @FL.when(v[EV_TCP_TIMER])
+        def _():
+            with scope("tcp.timer"):
+                tcp.on_tcp_timer(st, hp, sh, kind == EV_TCP_TIMER, t, wend,
+                                 pkt, expired=parts["rto"])
+
+        @FL.when(v[EV_TCP_CLOSE])
+        def _():
+            tcp.on_tcp_close(st, hp, sh, kind == EV_TCP_CLOSE, t, wend,
+                             pkt)
 
     if cfg.cpu_model:
         # every pop re-checks the CPU, so no NIC-TX is chained; the
@@ -221,7 +318,7 @@ def step_all_hosts(st, hp, sh, wend, cfg: EngineConfig,
         set_where(st.cpu_avail, ready,
                   torch.maximum(st.cpu_avail, t) + hp.cpu_cost)
         st.stats[:, ST_EVENTS] += ready.to(torch.int64)
-        return True
+        return FL.result(cont)
 
     # Chain a due-now NIC-TX into the same pass, as the reference does:
     # executing the queue head early is what the next pass would do.
@@ -229,26 +326,35 @@ def step_all_hosts(st, hp, sh, wend, cfg: EngineConfig,
     due = ready & (t2 == t) & (rget(st.eq_kind, slot2) == EV_NIC_TX)
     if cfg.uses_tcp:
         pull2 = due & (st.txq_cnt == 0) & (st.ob_cnt < st.ob_time.shape[1])
-        any_due, pull = torch.stack([due.any(), pull2.any()]).tolist()
+        any_due, pull = FL.read(torch.stack([due.any(), pull2.any()]))
     else:
-        any_due, pull = bool(due.any()), False     # host sync
-    if any_due:
+        (any_due,), pull = FL.read(due.any()[None]), False
+
+    @FL.when(any_due)
+    def _():
         equeue.q_clear_slot(st, due, slot2)
         with scope("nic.tx"):
             nic.on_tx(st, hp, sh, due, t, wend, cfg.qdisc,
                       tcp=cfg.uses_tcp, pull_tcp=pull)
     st.stats[:, ST_EVENTS] += ready.to(torch.int64) + due.to(torch.int64)
-    return True
+    return FL.result(cont)
 
 
-def drain_window(st, hp, sh, wend, cfg: EngineConfig,
-                 lane_passes=None) -> int:
-    """Execute every event below `wend` (an int, or each row's own);
-    returns the pass count."""
-    passes = 0
-    while step_all_hosts(st, hp, sh, wend, cfg, lane_passes):
-        passes += 1
-    return passes
+def drain_window(st, hp, sh, wend, cfg: EngineConfig, plan: Plan = None,
+                 lane_passes=None, W=None) -> int:
+    """Execute every event below `wend` (an int, a device scalar, or
+    each row's own): a ``flow.while_`` over passes. Returns the pass
+    count under the eager flow (0 under a captured one, which counts in
+    `W`)."""
+    plan = plan or make_plan(cfg, hp, sh)
+    n = [0]
+
+    def one_pass():
+        cont = step_all_hosts(st, hp, sh, wend, cfg, plan, lane_passes, W)
+        n[0] += cont is True
+        return cont
+    FL.cur().while_(True, one_pass)
+    return n[0]
 
 
 # --- Window-boundary packet exchange ----------------------------------------
@@ -512,10 +618,59 @@ def next_wakeup(st) -> int:
     return int(torch.minimum(st.eq_next.min(), st.ob_next.min()))
 
 
+def window_scalars(wstart: int, wend: int, stop: int, min_jump: int,
+                   max_windows: int) -> torch.Tensor:
+    """The chunk's window scalars W ([K.W_LEN] int64, on the CPU)."""
+    W = [0] * K.W_LEN
+    W[K.W_WS], W[K.W_WE], W[K.W_STOP] = wstart, wend, stop
+    W[K.W_JUMP], W[K.W_MAXW] = min_jump, max_windows
+    return torch.tensor(W, dtype=torch.int64)
+
+
+def run_chunk(st, hp, sh, cfg: EngineConfig, plan: Plan, W, tick=None):
+    """The chunk: up to W[W_MAXW] windows from [W[W_WS], W[W_WE]),
+    never past W[W_STOP], written against the current flow (``core.
+    flow``), with the window scalars on the device: a ``while_`` over
+    windows holding the drain's ``while_`` over passes, the exchange
+    under ``if_`` on its packet count, and the window boundaries in the
+    advance kernel (``core.kernels.advance``). Under a captured flow it
+    reads nothing on the host. `tick`, when given (eager only), is
+    called with "drain", "exchange" and "advance" as each phase of a
+    window ends."""
+    tick = tick or (lambda _label: None)
+    K.advance(st.eq_next, st.ob_next, st.ob_cnt, W, K.ADV_OPEN)
+
+    def window():
+        with scope("drain"):
+            drain_window(st, hp, sh, W[K.W_WEFF], cfg, plan, W=W)
+        tick("drain")
+        with scope("cap_peaks"):
+            update_cap_peaks(st)
+        with scope("exchange"):
+            K.advance(st.eq_next, st.ob_next, st.ob_cnt, W, K.ADV_SHIP)
+
+            @FL.when(W[K.W_EX])     # an empty exchange is the identity
+            def _():
+                exchange(st, hp, sh, cfg, plan.seed)
+        with scope("cap_peaks"):
+            update_cap_peaks(st)
+        tick("exchange")
+        with scope("advance"):
+            # anti-livelock: a window that executed nothing and shipped
+            # nothing re-opens at the earliest queue event, not at the
+            # same carried arrival (in the kernel)
+            K.advance(st.eq_next, st.ob_next, st.ob_cnt, W, K.ADV_STEP,
+                      handle=FL.loop_handle())
+        tick("advance")
+        return FL.result(W[K.W_CONT])
+    FL.cur().while_(W[K.W_CONT], window)
+
+
 @torch.inference_mode()
 def run_windows(st, hp, sh, wstart: int, wend: int, cfg: EngineConfig,
-                max_windows: int, clock=None):
-    """Execute up to `max_windows` lookahead windows in place.
+                max_windows: int, clock=None, plan: Plan = None):
+    """Execute up to `max_windows` lookahead windows in place, under the
+    eager flow (each predicate read on the host).
 
     Returns (wstart', wend', windows_run, passes). The caller loops
     until wstart' >= stop_time or wstart' == SIMTIME_MAX. `clock`, when
@@ -524,37 +679,60 @@ def run_windows(st, hp, sh, wstart: int, wend: int, cfg: EngineConfig,
     Runs in inference mode: nothing here needs autograd, and skipping
     its bookkeeping shortens every operation's host time. Under an
     active passcope capture each phase is a labelled range."""
-    tick = clock or (lambda _label: None)
-    stop = int(sh.stop_time)
-    min_jump = int(sh.min_jump)
-    seed = int(sh.seed32)
-    ws, we, i, passes = wstart, wend, 0, 0
-    while i < max_windows and ws < stop and ws < SIMTIME_MAX:
-        # never execute past the simulation end
-        we_eff = min(we, stop)
-        with scope("drain"):
-            ran = next_event_time(st) < we_eff
-            passes += drain_window(st, hp, sh, we_eff, cfg)
-        tick("drain")
-        with scope("cap_peaks"):
-            update_cap_peaks(st)
-        with scope("exchange"):
-            ob0 = int(st.ob_cnt.sum())
-            if ob0:     # an empty exchange is the identity
-                exchange(st, hp, sh, cfg, seed)
-        with scope("cap_peaks"):
-            update_cap_peaks(st)
-        tick("exchange")
-        with scope("advance"):
-            # anti-livelock: a window that executed nothing and shipped
-            # nothing re-opens at the earliest queue event, not at the
-            # same carried arrival
-            progressed = ran or int(st.ob_cnt.sum()) < ob0
-            nt = next_wakeup(st) if progressed else next_event_time(st)
-            ws, we = nt, (SIMTIME_MAX if nt == SIMTIME_MAX
-                          else nt + min_jump)
-        tick("advance")
-        i += 1
+    plan = plan or make_plan(cfg, hp, sh)
+    W = window_scalars(wstart, wend, int(sh.stop_time), int(sh.min_jump),
+                       max_windows).to(st.eq_next.device)
+    run_chunk(st, hp, sh, cfg, plan, W, clock)
+    FL.STATS["host_reads"] += 1
+    ws, we, i, passes = W[:K.W_PASSES + 1].tolist()
+    return ws, we, i, passes
+
+
+def prepare_capture(device, cfg: EngineConfig):
+    """Build the tables the chunk's handlers make at first use, which a
+    capture cannot (they copy from the host)."""
+    if cfg.uses_tcp:
+        from ..net import congestion
+        congestion._tables(device)
+    if cfg.netscope:
+        from ..obs import netscope
+        netscope.bounds(device)
+
+
+def chunk_graph(st, hp, sh, cfg: EngineConfig, chunk: int, plan: Plan):
+    """The captured chunk for this state and plan (``core.jitcache``
+    memory tier), captured on a miss without running it."""
+    from ..core import jitcache as JC
+    dev = st.eq_next.device
+    sig = JC.signature(JC.cache_scope(cfg, chunk), plan, (st, hp, sh))
+
+    def build():
+        prepare_capture(dev, cfg)
+        W = torch.zeros(K.W_LEN, dtype=torch.int64, device=dev)
+
+        def body():
+            with torch.inference_mode():
+                run_chunk(st, hp, sh, cfg, plan, W)
+        g = JC.capture(body, dev, keep=(W,))
+        g.W = W
+        return g
+    return JC.CHUNKS.warm(sig, build)
+
+
+def run_windows_graph(st, hp, sh, wstart: int, wend: int,
+                      cfg: EngineConfig, max_windows: int, plan: Plan,
+                      stop: int = None):
+    """``run_windows`` as one replay of the chunk's captured CUDA graph:
+    the window scalars are copied in, the graph runs every window of
+    the chunk on the device, and the host reads W once at the end.
+    `stop` overrides ``sh.stop_time`` (a fault segment's end)."""
+    g = chunk_graph(st, hp, sh, cfg, max_windows, plan)
+    g.W.copy_(window_scalars(wstart, wend,
+                             int(sh.stop_time) if stop is None else stop,
+                             int(sh.min_jump), max_windows))
+    g.replay()
+    FL.STATS["host_reads"] += 1
+    ws, we, i, passes = g.W[:K.W_PASSES + 1].tolist()
     return ws, we, i, passes
 
 
@@ -576,6 +754,7 @@ def run_windows_batch(st, hp, sh, ws, we, cfg: EngineConfig,
     B, H = sh.lanes, sh.hosts
     i = torch.zeros(B, dtype=torch.int64, device=ws.device)
     passes = 0
+    plan = make_plan(cfg, hp, sh)
     while True:
         with scope("advance"):
             active = (i < max_windows) & (ws < sh.stop_time) \
@@ -586,7 +765,8 @@ def run_windows_batch(st, hp, sh, ws, we, cfg: EngineConfig,
             ran = st.eq_next.view(B, H).min(1).values < we_eff
             wend = torch.where(active, we_eff, 0).repeat_interleave(H)
         with scope("drain"):
-            passes += drain_window(st, hp, sh, wend, cfg, lane_passes)
+            passes += drain_window(st, hp, sh, wend, cfg, plan,
+                                   lane_passes)
         with scope("cap_peaks"):
             update_cap_peaks(st)
         with scope("exchange"):

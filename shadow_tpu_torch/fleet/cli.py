@@ -11,9 +11,12 @@ enqueues batch members that execute as lanes of ONE child
 (serving.batch); ``--device`` (default cuda) is the torch device the
 run and batch children get. ``run`` drains the queue — restart it
 after any crash or preemption and the sweep completes as if never
-interrupted (docs/fleet.md); ``--aot-cache`` and ``--prewarm`` are
-refused (exit 2): eager torch has no executable to cache. ``status``
-folds the journal into a table.
+interrupted (docs/fleet.md); ``--aot-cache DIR`` shares the native
+kernel library's disk tier with every child (serving.aotcache), and
+``--prewarm`` with it fingerprints each queued run's shape, dedups the
+shapes and builds and captures each one once before its runs admit
+(serving.prewarm). ``status`` folds the journal into a table, with the
+shapes warmed and pending.
 
 Exit codes of ``run``: 0 queue drained, every run done; 3 drained but
 some runs quarantined (their crash-cause journals are named in the
@@ -74,8 +77,6 @@ def _auto_id(queue, stem: str) -> str:
 
 
 def main(argv=None) -> int:
-    from ..serving import NO_EXECUTABLE_CACHE
-
     p = argparse.ArgumentParser(
         prog="python -m shadow_tpu_torch fleet",
         description="crash-safe sweep scheduler (docs/fleet.md)")
@@ -174,9 +175,18 @@ def main(argv=None) -> int:
     pr.add_argument("--python", default=None,
                     help="interpreter for child runs")
     pr.add_argument("--aot-cache", default=None, metavar="DIR",
-                    help="refused: " + NO_EXECUTABLE_CACHE)
+                    help="share the native kernel library's disk tier "
+                         "(serving.aotcache) with every child: it "
+                         "builds once and loads in every later child")
     pr.add_argument("--prewarm", action="store_true",
-                    help="refused: " + NO_EXECUTABLE_CACHE)
+                    help="with --aot-cache: fingerprint each queued "
+                         "config run's shape headlessly, dedup shapes "
+                         "across the sweep, and build and capture each "
+                         "distinct shape once before its runs admit "
+                         "(serving.prewarm)")
+    pr.add_argument("--prewarm-jobs", type=int, default=1, metavar="N",
+                    help="concurrent shape probe/warm children "
+                         "(default 1)")
 
     pt = sub.add_parser("status", help="fold the journal into a table")
     pt.add_argument("queue")
@@ -402,16 +412,16 @@ def main(argv=None) -> int:
         if not q.exists():
             p.error(f"{args.queue!r} holds no queue journal — submit "
                     "runs first")
-        if args.aot_cache is not None or args.prewarm:
-            flag = "--aot-cache" if args.aot_cache is not None \
-                else "--prewarm"
-            p.error(f"{flag}: {NO_EXECUTABLE_CACHE}")
+        if args.prewarm and not args.aot_cache:
+            p.error("--prewarm builds shapes into the shared disk tier: "
+                    "it needs --aot-cache DIR")
         sched = Scheduler(
             q, workers=args.workers, max_hosts=args.max_hosts,
             max_rss_mb=args.max_rss_mb,
             hang_timeout_s=args.hang_timeout, backoff_s=args.backoff,
             backoff_cap_s=args.backoff_cap, grace_s=args.grace,
-            python=args.python)
+            python=args.python, aot_cache=args.aot_cache,
+            prewarm=args.prewarm, prewarm_jobs=args.prewarm_jobs)
         # SIGTERM/SIGINT = preempt: children checkpoint + requeue,
         # we exit 75; the next `fleet run` resumes the sweep
         for sig in (signal.SIGTERM, signal.SIGINT):
@@ -432,6 +442,7 @@ def main(argv=None) -> int:
     # status
     q = Queue(args.queue)
     states = q.fold()
+    pw = q.prewarm_fold()
     ens = None
     if args.ensemble:
         # fold every run's netscope stream (its last record carries
@@ -464,6 +475,10 @@ def main(argv=None) -> int:
                      "last_cause": st.last_cause,
                      "quarantine_cause": st.quarantine_cause}
                for rid, st in states.items()}
+        if pw["shapes"]:
+            # shapes warmed vs pending (serving.prewarm's journal
+            # records); "_shapes" cannot collide with a run id
+            out["_shapes"] = pw
         if ens is not None:
             out["_ensemble"] = ens
         print(json.dumps(out, indent=1, sort_keys=True))
@@ -487,6 +502,12 @@ def main(argv=None) -> int:
         counts[st.state] = counts.get(st.state, 0) + 1
     print("total: " + ", ".join(f"{v} {k}"
                                 for k, v in sorted(counts.items())))
+    if pw["shapes"]:
+        by = {}
+        for st_ in pw["shapes"].values():
+            by[st_] = by.get(st_, 0) + 1
+        print("shapes: " + ", ".join(f"{v} {k}"
+                                     for k, v in sorted(by.items())))
     if ens is not None:
         if ens.get("kinds"):
             print(f"ensemble: {ens['runs']} runs "

@@ -186,6 +186,9 @@ class Queue:
         states: dict = {}
         for rec in self.entries():
             op = rec.get("op")
+            if op == "prewarm":
+                continue          # shape records fold separately
+                #   (prewarm_fold); they carry no run transition
             if op == "submit":
                 spec = rec.get("run") or {}
                 rid = spec.get("id")
@@ -235,6 +238,26 @@ class Queue:
                     f"fleet queue: {self.journal}: unknown op "
                     f"{op!r} — skipped\n")
         return states
+
+    def prewarm_fold(self) -> dict:
+        """The pre-warm shape records (``op: prewarm``, written by the
+        scheduler's serving.prewarm.Prewarmer): {"shapes": {shape: last
+        state}, "runs": {run_id: shape}} — what ``fleet status``
+        reports as shapes warmed vs pending."""
+        shapes: dict = {}
+        runs: dict = {}
+        for rec in self.entries():
+            if rec.get("op") != "prewarm":
+                continue
+            fp = rec.get("shape")
+            state = rec.get("state")
+            rid = rec.get("run")
+            if fp:
+                shapes[fp] = state if state != "resolved" else (
+                    shapes.get(fp) or "pending")
+            if rid and fp:
+                runs[rid] = fp
+        return {"shapes": shapes, "runs": runs}
 
     # --- per-run paths ---
     def run_dir(self, run_id: str) -> str:

@@ -72,7 +72,8 @@ class Scheduler:
                  hang_timeout_s: float = 900.0, backoff_s: float = 1.0,
                  backoff_cap_s: float = 60.0, grace_s: float = 60.0,
                  poll_s: float = 0.2, python: str = None, log=None,
-                 max_spont_preempts: int = 20):
+                 max_spont_preempts: int = 20, aot_cache: str = None,
+                 prewarm: bool = False, prewarm_jobs: int = 1):
         self.queue = queue
         self.workers = max(int(workers), 1)
         self.max_hosts = int(max_hosts)
@@ -85,6 +86,14 @@ class Scheduler:
         self.python = python
         self.log = log or (lambda m: sys.stderr.write(
             f"shadow_tpu_torch: fleet: {m}\n"))
+        # the serving layer: children share the native kernel library's
+        # disk tier (serving.aotcache), and with prewarm=True each
+        # distinct shape is built and captured once before its runs
+        # admit (serving.prewarm)
+        self.aot_cache = aot_cache
+        self.prewarm = bool(prewarm) and bool(aot_cache)
+        self.prewarm_jobs = max(int(prewarm_jobs), 1)
+        self._prewarmer = None
         # spontaneous exit-75s (nobody preempted): bounded so a child
         # that always exits 75 cannot livelock the drain loop
         self.max_spont_preempts = int(max_spont_preempts)
@@ -422,9 +431,9 @@ class Scheduler:
     def _admit_batch(self, st, states: dict, now: float,
                      slotted: set) -> bool:
         """Try to admit the whole batch group `st` belongs to as ONE
-        BatchSlot. All non-terminal members must be queued and past
-        their backoff; the group's admission weight is the members'
-        sum. Returns True when a slot started."""
+        BatchSlot. All non-terminal members must be queued, past their
+        backoff and (under --prewarm) shape-warm; the group's admission
+        weight is the members' sum. Returns True when a slot started."""
         gid = st.spec.get("batch")
         group = [s for s in states.values()
                  if s.spec.get("batch") == gid
@@ -433,7 +442,9 @@ class Scheduler:
             return False
         for m in group:
             if (m.state != "queued" or m.id in slotted
-                    or now < self._eligible_at.get(m.id, 0)):
+                    or now < self._eligible_at.get(m.id, 0)
+                    or (self._prewarmer is not None
+                        and not self._prewarmer.ready(m.id))):
                 return False
         weight = {"hosts": sum(m.spec.get("hosts", 1) for m in group),
                   "rss_mb": sum(m.spec.get("rss_mb", 0)
@@ -449,7 +460,7 @@ class Scheduler:
             claimed.append(m.id)
         try:
             slot = BatchSlot(self.queue, group, python=self.python,
-                             log=self.log)
+                             log=self.log, aot_cache=self.aot_cache)
         except OSError as e:
             for m in group:
                 self._handle_spawn_failure(m, e)
@@ -495,11 +506,29 @@ class Scheduler:
                 self.log("queue is empty; nothing to do")
                 return EXIT_DRAINED
             self._recover(states)
+            if self.prewarm:
+                # serving.prewarm: fingerprint each queued config run's
+                # shape, dedup across the sweep, warm each distinct
+                # shape once; runs admit once their shape is warmed.
+                # Batch groups run their own stacked program and are
+                # not gated on a single run's warm
+                from ..serving.prewarm import Prewarmer
+                self._prewarmer = Prewarmer(
+                    [st.spec for st in states.values()
+                     if st.state not in TERMINAL
+                     and not st.spec.get("batch")],
+                    self.aot_cache, python=self.python,
+                    jobs=self.prewarm_jobs, log=self.log,
+                    journal=lambda **kw: self.queue.append(
+                        "prewarm", **kw))
             n_all = len(states)
             self.log(f"draining {n_all} runs "
                      f"({sum(1 for s in states.values() if s.state in TERMINAL)} "
                      f"already terminal) with {self.workers} workers")
             while True:
+                # 0. the pre-warm pipeline (non-blocking)
+                if self._prewarmer is not None:
+                    self._prewarmer.tick()
                 # 1. reap
                 for slot in list(self.slots):
                     rc = slot.proc.poll()
@@ -535,6 +564,9 @@ class Scheduler:
                         continue
                     if now < self._eligible_at.get(st.id, 0):
                         continue
+                    if (self._prewarmer is not None
+                            and not self._prewarmer.ready(st.id)):
+                        continue
                     if st.spec.get("batch"):
                         if self._admit_batch(st, states, now,
                                              slotted):
@@ -546,7 +578,8 @@ class Scheduler:
                         continue
                     try:
                         slot = Slot(self.queue, st, python=self.python,
-                                    log=self.log)
+                                    log=self.log,
+                                    aot_cache=self.aot_cache)
                     except OSError as e:
                         self._handle_spawn_failure(st, e)
                         continue
@@ -593,6 +626,8 @@ class Scheduler:
                         if quarantined else ""))
             return EXIT_QUARANTINED if quarantined else EXIT_DRAINED
         finally:
+            if self._prewarmer is not None:
+                self._prewarmer.shutdown()
             self._release_lock()
 
     def _drain_preempt(self, states: dict) -> int:

@@ -49,12 +49,17 @@ os.execvp(sys.argv[2], sys.argv[2:])
 """
 
 
+# the disk tier's variable (serving.aotcache.ENV)
+AOT_ENV = "SHADOW_TPU_TORCH_AOT_CACHE"
+
 def build_child_argv(queue: Queue, spec: dict, resume: bool,
-                     python: str = None) -> list:
+                     python: str = None, aot_cache: str = None) -> list:
     """The child command line for one attempt. Config runs get the
-    managed durability args and the spec's ``--device``; cmd runs are
+    managed durability args, the spec's ``--device`` and ``--aot-cache``
+    when the scheduler serves one (serving.aotcache); cmd runs are
     verbatim (their retries re-run from scratch — the spec chose that
-    mode)."""
+    mode; they get the cache through SHADOW_TPU_TORCH_AOT_CACHE in
+    their environment)."""
     if spec.get("cmd"):
         return list(spec["cmd"])
     rid = spec["id"]
@@ -74,6 +79,8 @@ def build_child_argv(queue: Queue, spec: dict, resume: bool,
     if spec.get("netscope"):
         argv += ["--netscope",
                  os.path.abspath(queue.netscope_path(rid))]
+    if aot_cache:
+        argv += ["--aot-cache", os.path.abspath(aot_cache)]
     if resume:
         argv += ["--resume", "latest"]
     return argv
@@ -88,7 +95,7 @@ def _cfg_bytes(path: str) -> bytes | None:
 
 
 def build_batch_argv(queue: Queue, specs: list,
-                     python: str = None) -> list:
+                     python: str = None, aot_cache: str = None) -> list:
     """The ONE child command line executing a whole batch group
     (``python -m shadow_tpu_torch batch`` — serving.batch), on the
     first member's ``--device``:
@@ -142,6 +149,8 @@ def build_batch_argv(queue: Queue, specs: list,
         argv += ["--netscope-paths",
                  ",".join(os.path.abspath(
                      queue.netscope_path(s["id"])) for s in specs)]
+    if aot_cache:
+        argv += ["--aot-cache", os.path.abspath(aot_cache)]
     return argv
 
 
@@ -150,7 +159,7 @@ class Slot:
     child process, the claim's pid refresh, and the exit record."""
 
     def __init__(self, queue: Queue, state, python: str = None,
-                 log=None):
+                 log=None, aot_cache: str = None):
         self.queue = queue
         self.spec = state.spec
         self.run_id = state.spec["id"]
@@ -165,10 +174,13 @@ class Slot:
 
         rd = queue.run_dir(self.run_id)
         os.makedirs(rd, exist_ok=True)
-        argv = build_child_argv(queue, self.spec, self.resume, python)
+        argv = build_child_argv(queue, self.spec, self.resume, python,
+                                aot_cache=aot_cache)
         env = dict(os.environ)
         env.update(self.spec.get("env") or {})
         env["SHADOW_TPU_FLEET_RUN_DIR"] = os.path.abspath(rd)
+        if aot_cache:
+            env[AOT_ENV] = os.path.abspath(aot_cache)
         self._stdout = open(queue.log_path(self.run_id), "ab")
         self.t0 = time.time()
         self.last_progress = self.t0
@@ -316,7 +328,7 @@ class BatchSlot(Slot):
     heartbeat plus every member's digest chain."""
 
     def __init__(self, queue: Queue, states: list, python: str = None,
-                 log=None):
+                 log=None, aot_cache: str = None):
         assert states, "a batch group needs at least one member"
         self.queue = queue
         self.states = list(states)
@@ -341,11 +353,14 @@ class BatchSlot(Slot):
 
         for rid in self.member_ids:
             os.makedirs(queue.run_dir(rid), exist_ok=True)
-        argv = build_batch_argv(queue, self.specs, python)
+        argv = build_batch_argv(queue, self.specs, python,
+                                aot_cache=aot_cache)
         env = dict(os.environ)
         env.update(self.specs[0].get("env") or {})
         env["SHADOW_TPU_FLEET_RUN_DIR"] = os.path.abspath(
             queue.run_dir(self.run_id))
+        if aot_cache:
+            env[AOT_ENV] = os.path.abspath(aot_cache)
         self._stdout = open(queue.log_path(self.run_id), "ab")
         self.t0 = time.time()
         self.last_progress = self.t0

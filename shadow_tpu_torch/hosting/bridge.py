@@ -62,7 +62,7 @@ OP_ABORT = 9         # a=slot: abortive close (RST when established)
 _SLOT_OPS = (OP_TCP_WRITE, OP_UDP_SENDTO, OP_CLOSE, OP_ABORT)
 
 
-def hosted_wake(st, hp, sh, m, now, wake, branches):
+def hosted_wake(st, hp, sh, m, now, wake, br, plan):
     """EV_APP handler of hosted rows: record the wake for the CPU tier
     (every wake reason takes the same path)."""
     cap = st.hw_time.shape[1]

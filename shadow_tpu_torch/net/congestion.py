@@ -36,6 +36,8 @@ import struct
 import numpy as np
 import torch
 
+from ..core import flow as FL
+
 from ..core.rng import fma_f32
 
 CC_AIMD = 0
@@ -75,7 +77,8 @@ def on_ack(kind, cwnd, ssthresh, wmax, epoch, k, npkts, now, srtt_ns,
     add_cwnd = cwnd + (npkts_f * npkts_f) / cmax
 
     fresh = epoch < 0
-    now = torch.as_tensor(now, dtype=torch.int64, device=cwnd.device)
+    if not torch.is_tensor(now):
+        now = torch.full((), now, dtype=torch.int64, device=cwnd.device)
     epoch2 = torch.where(fresh, now, epoch)
     gap = torch.maximum(wmax - cwnd, torch.zeros_like(cwnd))
     need = fresh & ~in_ss if live is None else fresh & ~in_ss & live
@@ -116,11 +119,16 @@ def on_loss(kind, cwnd, ssthresh, wmax):
 
 
 def _cbrt_where(need, x):
-    """cbrt_f32(x) where some row needs it (one host sync); zeros
-    otherwise — the value is only selected on those rows."""
-    if bool(need.any()):
-        return cbrt_f32(x)
-    return torch.zeros_like(x)
+    """cbrt_f32(x) where some row needs it, zeros otherwise — the value
+    is only selected on those rows. The skip is a ``flow.when`` on
+    ``need.any()``: a host read under the eager flow, a conditional
+    node in a captured chunk."""
+    out = torch.zeros_like(x)
+
+    @FL.when(need.any())
+    def _():
+        out.copy_(cbrt_f32(x))
+    return out
 
 
 # --- exact double fma -------------------------------------------------------

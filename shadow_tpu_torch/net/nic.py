@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import flow as FL
 from ..core.rowops import Slot, col_add, mput, rget, rset_where, set_where
 from ..core.simtime import SIMTIME_ONE_SECOND
 from ..engine import equeue
@@ -109,7 +110,8 @@ def on_tx(st, hp, sh, m, now, wend, qdisc=QDISC_RR, tcp=True,
     outbox (this window's emit budget) full — retry at the window
     boundary instead of dropping. `tcp` False: the config opens no TCP
     socket (no socket scan); `pull_tcp` False skips the TCP pull (the
-    caller knows no masked row can reach it)."""
+    caller knows no masked row can reach it; a predicate runs it under
+    ``flow.when``)."""
     set_where(st.nic_sched, m, False)
     no_room = st.ob_cnt >= st.ob_time.shape[1]
 
@@ -130,10 +132,13 @@ def _tx_pull(st, hp, sh, m, now, qdisc, tcp, pull_tcp):
     out = torch.where(ring[:, None], rget(st.txq_pkt, st.txq_head), 0)
     set_where(st.txq_head, ring, (st.txq_head + 1) % T)
     set_where(st.txq_cnt, ring, st.txq_cnt - 1)
-    has_pkt = ring
+    has_pkt = ring.clone()
 
-    mt = m & ~ring
-    if pull_tcp:
+    # the TCP pull writes `out` and `has_pkt` in place (it may run under
+    # a conditional node)
+    @FL.when(pull_tcp)
+    def _():
+        mt = m & ~ring
         want = tx_want(st)
         S = want.shape[1]
         ar = torch.arange(S, device=want.device)
@@ -148,8 +153,8 @@ def _tx_pull(st, hp, sh, m, now, qdisc, tcp, pull_tcp):
         tpkt, thas = tcp_pull(st, hp, sh, mt, now, sock)
         sent = mt & thas
         set_where(st.nic_rr, sent, ((sock + 1) % S).to(torch.int32))
-        out = torch.where(sent[:, None], tpkt, out)
-        has_pkt = ring | sent
+        out.copy_(torch.where(sent[:, None], tpkt, out))
+        has_pkt.copy_(ring | sent)
 
     wire = P.wire_bytes(out)
     busy = torch.where(has_pkt, tx_duration(wire, hp.bw_up).clamp(min=1), 0)

@@ -24,6 +24,7 @@ import torch
 from ..core.constants import (RECV_BUFFER_MIN_SIZE, SEND_BUFFER_MIN_SIZE,
                               TCP_CLOSE_TIMER_DELAY, TCP_MSS, TCP_RTO_MAX,
                               TCP_RTO_MIN)
+from ..core import flow as FL
 from ..core.rowops import Slot, col_add, mput
 from ..engine import equeue
 from ..engine.defs import (EV_APP, EV_TCP_CLOSE, EV_TCP_TIMER, ST_BYTES_RECV,
@@ -389,11 +390,12 @@ def _rx_conn(st, hp, sh, m, now, slot, pkt, parts):
     ACK processing with SACK and congestion control, data with the
     out-of-order scoreboard, peer FIN, TIME_WAIT/close bookkeeping.
 
-    `parts` (a set of "data", "fin", "finack", "sack") names the
-    sub-branches some masked row can take; the caller derives it from
-    the packet words, and a branch no row can take is skipped (its
-    every write would be a no-op)."""
-    run = parts.__contains__
+    `parts` maps "data", "fin", "finack" and "sack" to the predicate
+    that some masked row can take that sub-branch; the caller derives
+    it from the packet words, and a branch no row can take is skipped
+    (its every write would be a no-op). A value one branch hands to a
+    later one is written in place (a captured chunk runs each branch
+    under a conditional node)."""
     sl = _sl(st, slot)
     flags = pkt[:, P.FLAGS]
     syn = (flags & P.F_SYN) != 0
@@ -448,7 +450,8 @@ def _rx_conn(st, hp, sh, m, now, slot, pkt, parts):
     # the peer's SACK blocks join the sender scoreboard; the cumulative
     # ack prunes it
     snd_max0 = _g(st, "sk_snd_max", sl)
-    if run("sack"):
+    @FL.when(parts["sack"])
+    def _():
         upd = valid_ack & ~syn
         b1s, b1e = sack.decode(pkt[:, P.AUX], ackno, snd_max0)
         b2s, b2e = sack.decode(pkt[:, P.APP], ackno, snd_max0)
@@ -535,16 +538,19 @@ def _rx_conn(st, hp, sh, m, now, slot, pkt, parts):
 
     # --- C. data: in-order delivery through the receive scoreboard ---
     rcv0 = _g(st, "sk_rcv_nxt", sl)
-    rcv1 = rcv0
-    if run("data"):
+    rcv1 = rcv0.clone()
+
+    @FL.when(parts["data"])
+    def _():
         can_rx = ((state2 == TCPS_ESTABLISHED) | (state2 == TCPS_FIN_WAIT_1)
                   | (state2 == TCPS_FIN_WAIT_2))
         has_data = (ln > 0) & can_rx
         seg_end = seq + ln
         in_order = has_data & (seq <= rcv0) & (seg_end > rcv0)
         adv = torch.where(in_order, seg_end, rcv0)
-        oos1, ooe1, rcv1 = sack.consume(_g(st, "sk_ooo_s", sl),
-                                        _g(st, "sk_ooo_e", sl), adv)
+        oos1, ooe1, rcv = sack.consume(_g(st, "sk_ooo_s", sl),
+                                       _g(st, "sk_ooo_e", sl), adv)
+        rcv1.copy_(rcv)
         is_ooo = has_data & (seq > rcv1)
         oos2, ooe2, reneged = sack.insert_counted(
             oos1, ooe1, torch.where(is_ooo, seq, -1),
@@ -559,8 +565,10 @@ def _rx_conn(st, hp, sh, m, now, slot, pkt, parts):
          sk_ctl=_g(st, "sk_ctl", sl) | CTL_ACKNOW)
 
     # --- D. peer FIN: recorded once, completion re-checked every segment
-    state3 = state2
-    if run("fin"):
+    state3 = state2.clone()
+
+    @FL.when(parts["fin"])
+    def _():
         pf0 = _g(st, "sk_peer_fin", sl)
         fin_valid = fin & (state2 >= TCPS_ESTABLISHED)
         peer_fin1 = torch.where(fin_valid & (pf0 < 0), seq, pf0)
@@ -568,17 +576,18 @@ def _rx_conn(st, hp, sh, m, now, slot, pkt, parts):
         eof_now = fin_complete & ((state2 == TCPS_ESTABLISHED) |
                                   (state2 == TCPS_FIN_WAIT_1) |
                                   (state2 == TCPS_FIN_WAIT_2))
-        state3 = torch.where(
+        state3.copy_(torch.where(
             eof_now & (state2 == TCPS_ESTABLISHED), TCPS_CLOSE_WAIT,
             torch.where(eof_now & (state2 == TCPS_FIN_WAIT_1),
                         torch.where(fin_acked1, TCPS_TIME_WAIT, TCPS_CLOSING),
                         torch.where(eof_now & (state2 == TCPS_FIN_WAIT_2),
-                                    TCPS_TIME_WAIT, state2)))
+                                    TCPS_TIME_WAIT, state2))))
         _set(st, sl, m, sk_peer_fin=peer_fin1, sk_state=state3)
         _wake(st, m & eof_now, now, WAKE_EOF, sl, pkt=pkt)
 
     # --- E. terminal bookkeeping ---
-    if run("fin") or run("finack"):
+    @FL.when(FL.any_of(parts["fin"], parts["finack"]))
+    def _():
         tw = m & (state3 == TCPS_TIME_WAIT) & (state0 != TCPS_TIME_WAIT)
         equeue.q_push(st, tw, now + TCP_CLOSE_TIMER_DELAY, EV_TCP_CLOSE,
                       _timer_ev(sl.idx, _g(st, "sk_timer_gen", sl)))
@@ -605,25 +614,27 @@ def rx_parts(pkt):
 def tcp_rx(st, hp, sh, m, now, slot, pkt, parts):
     """Inbound TCP segment for each masked row's socket `slot`: RST
     teardown, listener SYN -> child, else the connection machine; then
-    kick the NIC. `parts` is the set of code names ("rst", "accept",
-    "conn", and _rx_conn's parts) some masked row needs; the others
-    are skipped."""
-    run = parts.__contains__
+    kick the NIC. `parts` maps the code names ("rst", "accept", "conn",
+    and _rx_conn's parts) to the predicate that some masked row needs
+    them; the others are skipped."""
     flags = pkt[:, P.FLAGS]
     syn = (flags & P.F_SYN) != 0
     ackf = (flags & P.F_ACK) != 0
     rst = (flags & P.F_RST) != 0
     sl = _sl(st, slot)
     state = _g(st, "sk_state", sl)
-    if run("rst"):
+    @FL.when(parts["rst"])
+    def _():
         mr = m & rst
         _wake(st, mr & (state >= TCPS_ESTABLISHED), now, WAKE_EOF, sl,
               pkt=pkt)
         sock_free(st, mr, sl)
     listen_syn = (state == TCPS_LISTEN) & syn & ~ackf
-    if run("accept"):
+    @FL.when(parts["accept"])
+    def _():
         _accept_syn(st, hp, sh, m & ~rst & listen_syn, now, sl, pkt)
-    if run("conn"):
+    @FL.when(parts["conn"])
+    def _():
         _rx_conn(st, hp, sh, m & ~rst & ~listen_syn, now, sl, pkt, parts)
     nic.kick(st, m, now)
 
@@ -632,8 +643,9 @@ def tcp_rx(st, hp, sh, m, now, slot, pkt, parts):
 
 def on_tcp_timer(st, hp, sh, m, now, wend, ev, expired):
     """EV_TCP_TIMER: RFC 6298 retransmission timeout with deadline
-    re-chaining (one outstanding event per socket). `expired` False
-    skips the timeout branch (the caller knows no row is due)."""
+    re-chaining (one outstanding event per socket). The timeout branch
+    runs under ``flow.when(expired)`` (False: the caller knows no row
+    is due)."""
     sl = _sl(st, ev[:, P.SEQ])
     gen = ev[:, P.ACK]
     valid = (_g(st, "sk_used", sl) & (gen == _g(st, "sk_timer_gen", sl))
@@ -643,40 +655,40 @@ def on_tcp_timer(st, hp, sh, m, now, wend, ev, expired):
     _set(st, sl, mv & (deadline == 0), sk_timer_on=False)
     equeue.q_push(st, mv & (deadline != 0) & (now < deadline), deadline,
                   EV_TCP_TIMER, _timer_ev(sl.idx, gen))
-    if not expired:
-        return
 
-    mx = mv & (deadline != 0) & (now >= deadline)
-    state = _g(st, "sk_state", sl)
-    rto2 = (_g(st, "sk_rto", sl) * 2).clamp(max=TCP_RTO_MAX)
-    ctl2 = (_g(st, "sk_ctl", sl)
-            | torch.where(state == TCPS_SYN_SENT, CTL_SYN, 0)
-            | torch.where(state == TCPS_SYN_RECEIVED, CTL_SYNACK, 0)
-            | torch.where(_fin_wait_states(state)
-                          & ~_g(st, "sk_fin_acked", sl), CTL_FIN, 0))
-    snd_nxt = _g(st, "sk_snd_nxt", sl)
-    snd_una = _g(st, "sk_snd_una", sl)
-    had_flight = snd_nxt > snd_una
-    cw, ss, wm = (_g(st, "sk_cwnd", sl), _g(st, "sk_ssthresh", sl),
-                  _g(st, "sk_cc_wmax", sl))
-    cw_l, ss_l, wm_l, ep_l = CC.on_loss(sh.cc_kind, cw, ss, wm)
-    empty = torch.full((gen.shape[0], sack.K), -1, dtype=_I64,
-                       device=gen.device)
-    _set(st, sl, mx,
-         sk_rto=rto2, sk_ctl=ctl2,
-         sk_snd_nxt=torch.where(had_flight, snd_una, snd_nxt),   # go-back-N
-         sk_cwnd=torch.where(had_flight, cw_l, cw),
-         sk_ssthresh=torch.where(had_flight, ss_l, ss),
-         sk_cc_wmax=torch.where(had_flight, wm_l, wm),
-         sk_cc_epoch=torch.where(had_flight, ep_l,
-                                 _g(st, "sk_cc_epoch", sl)),
-         sk_hole_end=0,
-         # after a timeout the peer may have reneged: trust no SACK
-         sk_sack_s=empty, sk_sack_e=empty,
-         sk_rtt_seq=-1,                                        # Karn
-         sk_timer_on=False)
-    _arm_timer(st, mx, sl, now)
-    nic.kick(st, mx, now)
+    @FL.when(expired)
+    def _():
+        mx = mv & (deadline != 0) & (now >= deadline)
+        state = _g(st, "sk_state", sl)
+        rto2 = (_g(st, "sk_rto", sl) * 2).clamp(max=TCP_RTO_MAX)
+        ctl2 = (_g(st, "sk_ctl", sl)
+                | torch.where(state == TCPS_SYN_SENT, CTL_SYN, 0)
+                | torch.where(state == TCPS_SYN_RECEIVED, CTL_SYNACK, 0)
+                | torch.where(_fin_wait_states(state)
+                              & ~_g(st, "sk_fin_acked", sl), CTL_FIN, 0))
+        snd_nxt = _g(st, "sk_snd_nxt", sl)
+        snd_una = _g(st, "sk_snd_una", sl)
+        had_flight = snd_nxt > snd_una
+        cw, ss, wm = (_g(st, "sk_cwnd", sl), _g(st, "sk_ssthresh", sl),
+                      _g(st, "sk_cc_wmax", sl))
+        cw_l, ss_l, wm_l, ep_l = CC.on_loss(sh.cc_kind, cw, ss, wm)
+        empty = torch.full((gen.shape[0], sack.K), -1, dtype=_I64,
+                           device=gen.device)
+        _set(st, sl, mx,
+             sk_rto=rto2, sk_ctl=ctl2,
+             sk_snd_nxt=torch.where(had_flight, snd_una, snd_nxt),   # go-back-N
+             sk_cwnd=torch.where(had_flight, cw_l, cw),
+             sk_ssthresh=torch.where(had_flight, ss_l, ss),
+             sk_cc_wmax=torch.where(had_flight, wm_l, wm),
+             sk_cc_epoch=torch.where(had_flight, ep_l,
+                                     _g(st, "sk_cc_epoch", sl)),
+             sk_hole_end=0,
+             # after a timeout the peer may have reneged: trust no SACK
+             sk_sack_s=empty, sk_sack_e=empty,
+             sk_rtt_seq=-1,                                        # Karn
+             sk_timer_on=False)
+        _arm_timer(st, mx, sl, now)
+        nic.kick(st, mx, now)
 
 
 def on_tcp_close(st, hp, sh, m, now, wend, ev):

@@ -53,6 +53,15 @@ def on(st) -> bool:
     return st.ns_hist.shape[2] != 0
 
 
+def bounds(device):
+    """The BOUNDS_US tensor on `device` (made at first use)."""
+    b = _BOUNDS.get(device)
+    if b is None:
+        b = _BOUNDS[device] = torch.tensor(BOUNDS_US, dtype=torch.int64,
+                                           device=device)
+    return b
+
+
 def observe(st, m, kind: int, value_us):
     """Count one sample per row into ``st.ns_hist[:, kind]`` where the
     [H] mask `m` holds; `value_us` is an [H] integer tensor of
@@ -61,10 +70,7 @@ def observe(st, m, kind: int, value_us):
     h = st.ns_hist
     if h.shape[2] == 0:
         return
-    b = _BOUNDS.get(h.device)
-    if b is None:
-        b = _BOUNDS[h.device] = torch.tensor(BOUNDS_US, dtype=torch.int64,
-                                             device=h.device)
+    b = bounds(h.device)
     idx = (value_us.to(torch.int64)[:, None] >= b).sum(1, keepdim=True)
     h[:, kind].scatter_add_(1, idx, m.to(torch.int64)[:, None])
 

@@ -10,9 +10,11 @@ finalization — so attribution is span arithmetic: per-span self-time
 named phases, against the run's measured wall.
 
 The contract: phases sum to >= :data:`MIN_ATTRIBUTED` of the wall, or
-the report names the residual. The port compiles nothing, so every
-chunk, the first included, is a ``chunk`` span, and there is no
-compile phase. Attribution is host-side and read-only: a ``--perf``
+the report names the residual. On the graph path the first chunk
+captures its CUDA graph (a ``jitcache.compile`` span, phase
+``compile-miss``, as the reference's XML compile) and the kernel
+library is built (``jitcache.compile``) or loaded from the disk tier
+(``jitcache.load``, phase ``compile-hit``). Attribution is host-side and read-only: a ``--perf``
 run's digest chain equals a plain run's.
 """
 
@@ -24,6 +26,8 @@ from collections import defaultdict
 # name, and the residual is only wall time no span covered
 PHASE_OF = {
     "run.setup": "setup",
+    "jitcache.compile": "compile-miss",  # a graph capture or a build
+    "jitcache.load": "compile-hit",      # the library from the disk tier
     "chunk": "window",
     "hosting.step": "hosting",       # the hosted apps' CPU tier per window
     "pcap.drain": "pcap",

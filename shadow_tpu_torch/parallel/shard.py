@@ -47,8 +47,8 @@ import torch
 
 from ..core.simtime import SIMTIME_MAX
 from ..engine.state import EngineConfig, Hosts, Shared
-from ..engine.window import (_deliver_dense, drain_window, route, settle,
-                             update_cap_peaks)
+from ..engine.window import (_deliver_dense, drain_window, make_plan, route,
+                             settle, update_cap_peaks)
 from ..obs.passcope import scope
 
 
@@ -344,6 +344,7 @@ def run_windows_sharded(ss: ShardedState, wstart: int, wend: int,
     stop = int(sh0.stop_time) if stop is None else int(stop)
     min_jump, seed = int(sh0.min_jump), int(sh0.seed32)
     passes = [0] * len(ss.hosts)
+    plans = [make_plan(ss.lcfg, hp, sh) for hp, sh in zip(ss.hp, ss.sh)]
     ws, we, i, nq = wstart, wend, 0, None
     while i < max_windows and ws < stop and ws < SIMTIME_MAX:
         we_eff = min(we, stop)
@@ -354,7 +355,7 @@ def run_windows_sharded(ss: ShardedState, wstart: int, wend: int,
             ran = nq < we_eff
             for k, st in enumerate(ss.hosts):
                 passes[k] += drain_window(st, ss.hp[k], ss.sh[k], we_eff,
-                                          ss.lcfg)
+                                          ss.lcfg, plans[k])
         tick("drain")
         with scope("cap_peaks"):
             for st in ss.hosts:

@@ -268,7 +268,6 @@ NO_MESH = ("batch lanes take no mesh; run a sharded scenario on its own "
 
 
 def main(argv=None) -> int:
-    from . import NO_EXECUTABLE_CACHE
 
     p = argparse.ArgumentParser(
         prog="python -m shadow_tpu_torch batch",
@@ -306,7 +305,8 @@ def main(argv=None) -> int:
                    help="explicit per-member netscope stream paths "
                         "(implies --netscope)")
     p.add_argument("--aot-cache", default=None, metavar="DIR",
-                   help="refused: " + NO_EXECUTABLE_CACHE)
+                   help="keep the native kernel library in DIR "
+                        "(serving.aotcache); the lanes run eager")
     p.add_argument("--workers", type=int, default=0, metavar="N",
                    help="refused: " + NO_MESH)
     p.add_argument("--perf", nargs="?", const="", default=None,
@@ -319,7 +319,8 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     if args.aot_cache:
-        p.error(f"--aot-cache: {NO_EXECUTABLE_CACHE}")
+        from . import aotcache as AC
+        AC.install(args.aot_cache)
     if args.workers:
         p.error(f"--workers: {NO_MESH}")
 

@@ -284,8 +284,9 @@ def test_fleet_cli_submit_status_device_and_refusals(tmp_path):
     """submit parses host counts, copies the XML and stores the
     device; the run and batch children carry ``--device`` and run
     ``python -m shadow_tpu_torch``; managed flags smuggled into a cmd
-    or a `--` tail are refused; ``run --aot-cache`` and ``run
-    --prewarm`` exit 2 naming B3; Scenario.to_xml round-trips."""
+    or a `--` tail are refused; the children carry ``--aot-cache`` when
+    the scheduler serves one, and ``run --prewarm`` without it exits 2;
+    Scenario.to_xml round-trips."""
     xml = tmp_path / "scen.xml"
     xml.write_text("""<shadow stoptime="6">
   <topology path="nope.graphml"/>
@@ -325,12 +326,16 @@ def test_fleet_cli_submit_status_device_and_refusals(tmp_path):
     with pytest.raises(SystemExit):      # a group keeps one device
         FC.main(["submit", qdir, str(xml), "--id", "grp", "--batch", "g",
                  "--seeds", "3"])
-    for flag in (["--aot-cache", str(tmp_path / "c")], ["--prewarm"]):
-        r = subprocess.run(
-            [sys.executable, "-m", "shadow_tpu_torch", "fleet", "run",
-             qdir] + flag, env=_env(), capture_output=True, text=True,
-            timeout=120)
-        assert r.returncode == 2 and "B3" in r.stderr, r.stderr
+    cache = str(tmp_path / "c")
+    argv = build_child_argv(q, st.spec, resume=False, aot_cache=cache)
+    assert argv[argv.index("--aot-cache") + 1] == os.path.abspath(cache)
+    bargv = build_batch_argv(q, members, aot_cache=cache)
+    assert bargv[bargv.index("--aot-cache") + 1] == os.path.abspath(cache)
+    r = subprocess.run(
+        [sys.executable, "-m", "shadow_tpu_torch", "fleet", "run", qdir,
+         "--prewarm"], env=_env(), capture_output=True, text=True,
+        timeout=120)
+    assert r.returncode == 2 and "--aot-cache" in r.stderr, r.stderr
 
     scen = Scenario(stop_time=10**9, topology_path="t.graphml",
                     hosts=[HostSpec(id="a", bandwidth_down=1500)])

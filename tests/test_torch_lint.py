@@ -34,6 +34,12 @@ PORT_ALLOW = {
             "backoff, lock takeover and reap timing",
         "shadow_tpu_torch/fleet/worker.py":
             "the progress watchdog compares wall mtimes",
+        "shadow_tpu_torch/core/jitcache.py":
+            "capture walls for STATS and the jitcache.compile span",
+        "shadow_tpu_torch/serving/aotcache.py":
+            "build and load walls, and stale publish-lock ages",
+        "shadow_tpu_torch/serving/prewarm.py":
+            "probe and warm children's deadlines",
     },
 }
 

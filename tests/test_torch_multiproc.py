@@ -86,10 +86,11 @@ def test_tgen_server_plus_bulk_client_matches():
     assert prep.stats[0, defs.ST_APP_DONE] == 1
 
 
-# aten operations of the run below on the tree before multi-process
-# routing was ported, with its run_windows in inference mode as here
-# (the same count: the routing adds none when each host has one process)
-SINGLE_PROCESS_OPS = 103_886
+# aten operations of the run below with one process per host: the
+# routing adds none (103,886 before the chunk's control flow moved onto
+# core.flow, whose eager flow runs the pass-flag and advance kernels'
+# plain versions and counts passes and windows on device scalars)
+SINGLE_PROCESS_OPS = 107_203
 
 
 def test_single_process_pass_adds_no_operation(monkeypatch):

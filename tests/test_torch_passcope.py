@@ -243,8 +243,8 @@ def test_run_census_shared_classification():
 
 def test_cli_passcope_prints_the_table(tmp_path):
     """``--passcope DIR`` prints the pass table and the occupancy block
-    and writes passcope.json; ``--aot-cache`` and ``--prewarm`` exit 2
-    naming B3."""
+    and writes passcope.json, on the eager path; on the CPU
+    ``--aot-cache`` runs as before and ``--prewarm`` captures nothing."""
     env = dict(os.environ, PYTHONPATH=str(REPO),
                SHADOW_TPU_PASSCOPE_CHUNKS="1")
     out = subprocess.run(
@@ -255,12 +255,19 @@ def test_cli_passcope_prints_the_table(tmp_path):
     assert "passcope: device pass table" in out.stdout
     assert "occupancy: waste_frac=" in out.stdout
     assert (tmp_path / "pc" / "passcope.json").exists()
-    for flag in (["--aot-cache", str(tmp_path / "c")], ["--prewarm"]):
+    outs = {}
+    for flag in (["--aot-cache", str(tmp_path / "c"), "--summary-json"],
+                 ["--prewarm"]):
         r = subprocess.run(
             [sys.executable, "-m", "shadow_tpu_torch", "examples/ping.xml",
              "--device", "cpu"] + flag,
             cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
-        assert r.returncode == 2 and "B3" in r.stderr, r.stderr
+        assert r.returncode == 0, r.stderr
+        outs[flag[-1]] = json.loads(r.stdout.strip().splitlines()[-1])
+    s, warm = outs["--summary-json"], outs["--prewarm"]
+    assert (s["path"], s["path_reason"], s["native_builds"]) == (
+        "eager", "device cpu", 0)
+    assert warm["captured"] is False and warm["path"] == "eager"
 
 
 @pytest.mark.parametrize("device", ["cpu"])

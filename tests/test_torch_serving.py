@@ -161,8 +161,8 @@ def test_batch_refuses_members_it_cannot_stack(why, match):
 
 def test_batch_cli_seeds_and_refusals(tmp_path):
     """``batch examples/ping.xml --seeds 1,2,3 --device cpu``: one line
-    per member, each member's chain equal to its run alone; --aot-cache
-    exits 2 naming B3."""
+    per member, each member's chain equal to its run alone; with
+    --aot-cache the lanes run as before (eager: nothing to build)."""
     d = tmp_path / "dg"
     buf = io.StringIO()
     with redirect_stdout(buf):
@@ -187,4 +187,5 @@ def test_batch_cli_seeds_and_refusals(tmp_path):
                         "--aot-cache", str(tmp_path / "c")],
                        cwd=REPO, env=env, capture_output=True, text=True,
                        timeout=120)
-    assert r.returncode == 2 and "B3" in r.stderr, r.stderr
+    assert r.returncode == 0, r.stderr
+    assert '{"member"' in r.stdout

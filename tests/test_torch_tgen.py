@@ -29,6 +29,7 @@ from shadow_tpu.routing.dns import DNS as RefDNS
 from shadow_tpu_torch import baseline_configs as PB
 from shadow_tpu_torch.apps import tgen as PT
 from shadow_tpu_torch.engine.sim import Simulation
+from shadow_tpu_torch.engine.window import make_plan
 from shadow_tpu_torch.routing.dns import DNS
 
 from conftest import SIMPLE_TOPOLOGY
@@ -223,7 +224,9 @@ def test_direct_index_reads_match():
     st = type(psim.hosts)(**{k: torch.from_numpy(v.copy())
                              for k, v in a.items()})
     PT.app_tgen(st, psim.hp, psim.sh, torch.ones(H, dtype=torch.bool),
-                torch.from_numpy(now), torch.from_numpy(wake), {3, 4, 5, 6})
+                torch.from_numpy(now), torch.from_numpy(wake),
+                [b in (3, 4, 5, 6) for b in range(7)],
+                make_plan(psim.cfg, psim.hp, psim.sh))
     got = st.numpy()
     assert (wake[:, P.SEQ] < 0).sum() > 5 and (wake[:, P.SEQ] >= S).sum() > 5
     bad = [f for f in want if not np.array_equal(got[f], want[f])]
