@@ -12,17 +12,27 @@ every process). Phases:
 1. device   — the card (nvidia-smi name and power limit), torch/CUDA.
 30. flow-kernels — first, as it builds the kernel library
               (``csrc/flow.cu`` through nvcc into build/kernels, or loads
-              it): the pass-flags and advance kernels against their plain
-              versions on the card at 4,096, 10,000 and 100,000 rows, bits
-              equal; their times (CUDA events) beside the plain versions'
-              and their bounds.
+              it): the pass-flags and advance kernels bit-equal to their
+              plain versions on the card at 1 to 100,003 rows
+              (CHECK_ROWS), contiguous and on views one element into a
+              larger tensor, and across 64 executions in one captured
+              graph, each with its own inputs and outputs, replayed
+              twice; at 4,096, 10,000 and 100,000 rows their times (CUDA
+              events) launched eagerly (``ms``) and as 200 launches
+              captured in one graph (``graph_ms``), beside an empty
+              kernel's in a graph (``floor_ms``; ``floor_body_ms`` inside
+              a conditional node's body, as the chunk captures it), the
+              plain versions' and the bounds. The timed graphs replay
+              the same inputs, which stay in L2 as the chunk's rows do
+              (the drain has just written them); the bounds are HBM's.
 
 The timed phases run first, each alone on the card and the host:
 
 2. ping     — examples/ping.xml through the CLI: mean RTT exactly 50 ms.
 3. phold    — phold-4096, 5 sim-s (bench.py's shape): messages conserved;
               the main path of the kernels line, whose launches (captured)
-              and executions on the card it counts.
+              and executions on the card it counts (4. and 5. count their
+              executions too: the kernels line's ``cells``).
 4. gossip   — examples/gossip-100k.xml, 100,000 hosts, 30 sim-s, with the
               caps from its own comment: >= 99.9% of hosts saw every
               mined block.
@@ -193,8 +203,9 @@ first use; a failed build fails the run.
 
 The JAX package has no Pallas kernel. The port's hand-written kernels
 are the chunk's two reductions (``csrc/flow.cu``: pass flags and
-advance); the ``kernels`` line lists them with phase 30's figures and
-phase 3's launches. The last line is the contract line
+advance); the ``kernels`` line lists them with phase 30's figures,
+phase 3's launches and the executions a pass and a window of phases 3,
+4 and 5. The last line is the contract line
 ``{"ok": true, "device": {...}}``. With no CUDA device the script exits
 non-zero before printing any result.
 """
@@ -1140,7 +1151,8 @@ def _phases(want, only, canonicalize_state, defs, R, kind, t_all, tmp):
         K.executions(reset=True)
         K.LAUNCHES.update(pass_flags=0, advance=0)
         timed_phold = phold_phase()
-        launches, executions = dict(K.LAUNCHES), K.executions()
+        launches = dict(K.LAUNCHES)
+        executions = count_executions("phold-4096", timed_phold)
         if not all(launches.values()) or not all(executions.values()):
             fail(f"phold-4096 did not go through every kernel: launches "
                  f"{launches}, executions {executions}")
@@ -1507,9 +1519,12 @@ def phold_phase():
 
 def gossip_phase():
     """4. gossip-100k as written, full 30 sim-s."""
+    from shadow_tpu_torch.core import kernels as K
     from shadow_tpu_torch.engine import defs
     t0 = time.perf_counter()
+    K.executions(reset=True)
     gsim, rep = run(gossip_scenario(100_000), gossip_cfg(100_000), "cuda")
+    count_executions("gossip-100k", rep)
     s = rep.summary()
     mined = int(gsim.final_hosts.app_r[0, 0, 4])
     seen = rep.stats[1:, defs.ST_XFER_DONE]
@@ -1530,6 +1545,14 @@ def gossip_phase():
 HBM_BYTES_PER_S = 3.35e12
 KERNEL_SOURCE = "shadow_tpu_torch/csrc/flow.cu"
 KERNEL_ROWS = (4096, 10_000, 100_000)     # phold-4096, socks10k, gossip-100k
+# the row counts the kernels are held at: one row, a ragged 16-byte tail,
+# a block's width and one past it, the main path's counts and one past
+CHECK_ROWS = (1, 3, 1023, 1025, 4096, 4097, 10_000, 16_384, 100_000,
+              100_003)
+GRAPH_EXECS = 64        # executions of each kernel in the checked graph
+GRAPH_LAUNCHES = 200    # launches of a kernel in a timed graph
+# the cells whose executions a pass and a window the kernels line gives
+CELL_EXECS = {}
 
 
 def _time_ms(fn, reps=200):
@@ -1546,10 +1569,56 @@ def _time_ms(fn, reps=200):
     return a.elapsed_time(b) / reps
 
 
-def _kernel_inputs(H, seed):
+def _replays_ms(replay, launches, reps=5):
+    """Mean ms a launch of a graph of `launches` launches: one untimed
+    `replay`, then `reps` timed by CUDA events."""
+    replay()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (launches * reps)
+
+
+def _graph_ms(fn, launches=GRAPH_LAUNCHES):
+    """Mean ms a launch of `fn` inside a CUDA graph of `launches` calls."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(launches):
+            fn()
+    return _replays_ms(g.replay, launches)
+
+
+def _body_graph_ms(fn, launches=GRAPH_LAUNCHES):
+    """Mean ms a launch of `fn` inside a conditional body: `launches`
+    calls under one ``flow.when`` on a flag that is set, captured as the
+    chunk is (``core.jitcache.capture``)."""
+    from shadow_tpu_torch.core import flow as FL
+    from shadow_tpu_torch.core import jitcache as JC
+    on = torch.ones(1, dtype=torch.int32, device="cuda")
+
+    def body():
+        @FL.when(on)
+        def _():
+            for _ in range(launches):
+                fn()
+    g = JC.capture(body, on.device, keep=(on,))
+    try:
+        return _replays_ms(g.replay, launches)
+    finally:
+        g.close()
+
+
+def _kernel_inputs(H, seed, offset=0):
     """Rows of a drain pass and a window boundary at H hosts, from a
     seed: pass codes (half the rows idle), TCP-part feature words, the
-    queues' next events, the outboxes' next arrivals and counts."""
+    queues' next events, the outboxes' next arrivals and counts; each
+    a view `offset` elements into a larger tensor."""
     from shadow_tpu_torch.engine.defs import EV_NULL
     from shadow_tpu_torch.engine.window import _N_CODES
     rng = np.random.RandomState(seed)
@@ -1562,66 +1631,169 @@ def _kernel_inputs(H, seed):
     ob = rng.randint(0, 5 * 10**9, H).astype(np.int64)
     ob[rng.rand(H) < 0.7] = (1 << 63) - 1
     cnt = rng.randint(0, 3, H).astype(np.int32)
-    return [torch.from_numpy(v).cuda() for v in (code, feat, eq, ob, cnt)]
+    return [torch.from_numpy(np.concatenate([np.zeros(offset, v.dtype),
+                                             v])).cuda()[offset:]
+            for v in (code, feat, eq, ob, cnt)]
+
+
+def _window_in(K):
+    """A window's scalars at 2 sim-s, the stop time 5 sim-s, 8 windows
+    a chunk, 5 packets shipped: every advance mode has work."""
+    from shadow_tpu_torch.engine.window import window_scalars
+    W = window_scalars(2 * 10**9, 2 * 10**9 + 10**7, 5 * 10**9, 10**7, 8)
+    W[K.W_OB0] = 5
+    return W.cuda()
+
+
+def _flag_args(code, feat, stop):
+    """pass_flags' arguments as the drain gives them, with a stop bit
+    among the feature bits when `stop`; without feature words when
+    `feat` is None."""
+    from shadow_tpu_torch.engine.defs import EV_NULL
+    from shadow_tpu_torch.engine.window import _N_CODES
+    if feat is None:
+        return (code, None, _N_CODES, 0, EV_NULL, 0, 0)
+    return (code, feat, _N_CODES, 11, EV_NULL, 1 << 10, (1 << 3) * stop)
+
+
+def _kernel_errors(K, H, seed, offset):
+    """Each kernel against its plain version on one input set -> the
+    largest absolute differences (pass_flags, advance)."""
+    code, feat, eq, ob, cnt = _kernel_inputs(H, seed, offset)
+    err_f = err_a = 0
+    for f, stop in ((feat, 0), (feat, 1), (None, 0)):
+        args = _flag_args(code, f, stop)
+        err_f = max(err_f, int((K.pass_flags(*args)
+                                - K.pass_flags_plain(*args)).abs().max()))
+    W0 = _window_in(K)
+    for mode in (K.ADV_OPEN, K.ADV_SHIP, K.ADV_STEP):
+        g = K.advance(eq, ob, cnt, W0.clone(), mode)
+        w = K.advance_plain(eq, ob, cnt, W0.clone(), mode)
+        err_a = max(err_a, int((g - w).abs().max()))
+    return err_f, err_a
+
+
+def _graph_errors(K):
+    """GRAPH_EXECS executions of each kernel captured in one graph,
+    each with its own inputs and outputs (the CHECK_ROWS row counts in
+    turn, every other one a view one element in; the advance modes in
+    turn), replayed twice -> the largest absolute differences from the
+    plain versions: partials or counters left dirty from one execution
+    to the next would show."""
+    cases = [(_kernel_inputs(CHECK_ROWS[i % len(CHECK_ROWS)], 1000 + i,
+                             i % 2), i % 3)
+             for i in range(GRAPH_EXECS)]
+    W0 = _window_in(K)
+    Ws = [W0.clone() for _ in cases]
+    flags = []
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for ((code, feat, eq, ob, cnt), mode), W in zip(cases, Ws):
+            flags.append(K.pass_flags(*_flag_args(code, feat, mode == 2)))
+            K.advance(eq, ob, cnt, W, mode)
+    err_f = err_a = 0
+    for _ in range(2):
+        for W in Ws:
+            W.copy_(W0)
+        g.replay()
+        torch.cuda.synchronize()
+        for ((code, feat, eq, ob, cnt), mode), W, got in zip(cases, Ws,
+                                                            flags):
+            want = K.pass_flags_plain(*_flag_args(code, feat, mode == 2))
+            err_f = max(err_f, int((got - want).abs().max()))
+            w = K.advance_plain(eq, ob, cnt, W0.clone(), mode)
+            err_a = max(err_a, int((W - w).abs().max()))
+    return err_f, err_a
 
 
 def flow_kernels_phase():
     """30. the chunk's two hand-written kernels against their plain
-    versions on the card, bits equal, at the main path's row counts,
-    with their times -> {kernel: figures at the largest row count}."""
+    versions on the card, bits equal, at CHECK_ROWS (contiguous and on
+    views one element in) and across GRAPH_EXECS executions in one
+    graph; their times at the main path's row counts, eager (`ms`) and
+    in a graph (`graph_ms`), beside an empty kernel's in a graph
+    (`floor_ms`), the plain versions' and the bounds -> {kernel:
+    figures at the largest row count, with graph_ms at each}."""
     from shadow_tpu_torch.core import kernels as K
-    from shadow_tpu_torch.engine.defs import EV_NULL
     from shadow_tpu_torch.engine.window import _N_CODES
-    from shadow_tpu_torch.engine.window import window_scalars
     t0 = time.perf_counter()
     launches0 = dict(K.LAUNCHES)
+    for H in CHECK_ROWS:
+        for offset in (0, 1):
+            err = _kernel_errors(K, H, H + offset, offset)
+            if any(err):
+                fail(f"flow-kernels: kernel != plain at H={H} offset="
+                     f"{offset}: pass_flags {err[0]}, advance {err[1]}")
+    err = _graph_errors(K)
+    if any(err):
+        fail(f"flow-kernels: kernel != plain across {GRAPH_EXECS} "
+             f"executions in one graph: pass_flags {err[0]}, advance "
+             f"{err[1]}")
+    max_err = dict(zip(("pass_flags", "advance"), err))
+
+    def empty():
+        K.check(K.lib().sf_empty(torch.cuda.current_stream().cuda_stream,
+                                 1, 1), "empty kernel")
+    floor_ms = _graph_ms(empty)
+    floor_body_ms = _body_graph_ms(empty)
     out, rows = {}, []
     for H in KERNEL_ROWS:
         code, feat, eq, ob, cnt = _kernel_inputs(H, H)
-        args = (code, feat, _N_CODES, 11, EV_NULL, 1 << 10, 0)
-        got = K.pass_flags(*args)
-        want = K.pass_flags_plain(*args)
-        err_f = int((got - want).abs().max())
-        W0 = window_scalars(2 * 10**9, 2 * 10**9 + 10**7, 5 * 10**9,
-                            10**7, 8).cuda()
-        W0[K.W_OB0] = 5
-        err_a = 0
-        for mode in (K.ADV_OPEN, K.ADV_SHIP, K.ADV_STEP):
-            g = K.advance(eq, ob, cnt, W0.clone(), mode)
-            w = K.advance_plain(eq, ob, cnt, W0.clone(), mode)
-            err_a = max(err_a, int((g - w).abs().max()))
-        if err_f or err_a:
-            fail(f"flow-kernels: kernel != plain at H={H}: pass_flags "
-                 f"{err_f}, advance {err_a}")
-        W = W0.clone()
+        args = _flag_args(code, feat, 0)
+        W = _window_in(K)
         fig = {
             "pass_flags": dict(
                 ms=_time_ms(lambda: K.pass_flags(*args)),
+                graph_ms=_graph_ms(lambda: K.pass_flags(*args)),
                 plain_ms=_time_ms(lambda: K.pass_flags_plain(*args)),
-                bytes=8 * H + 4 * (_N_CODES + 12), max_abs_err=err_f),
+                bytes=8 * H + 4 * (_N_CODES + 12)),
             "advance": dict(
                 ms=_time_ms(lambda: K.advance(eq, ob, cnt, W, K.ADV_STEP)),
+                graph_ms=_graph_ms(
+                    lambda: K.advance(eq, ob, cnt, W, K.ADV_STEP)),
                 plain_ms=_time_ms(lambda: K.advance_plain(
                     eq, ob, cnt, W, K.ADV_STEP)),
-                bytes=20 * H + 2 * 8 * K.W_LEN, max_abs_err=err_a)}
+                bytes=20 * H + 2 * 8 * K.W_LEN)}
         for name, f in fig.items():
             f["bound_ms"] = f["bytes"] / HBM_BYTES_PER_S * 1e3
-            rows.append(f"{name}@{H}: {f['ms']:.5f} ms (plain "
-                        f"{f['plain_ms']:.5f}, bound {f['bound_ms']:.6f})")
-        out = fig
+            rows.append(f"{name}@{H}: {f['ms']:.6f} ms, graph "
+                        f"{f['graph_ms']:.6f} (plain {f['plain_ms']:.5f}, "
+                        f"bound {f['bound_ms']:.6f})")
+            o = out.setdefault(name, {"graph_ms_at": {}})
+            o["graph_ms_at"][H] = round(f["graph_ms"], 6)
+            o.update(f, max_abs_err=max_err[name], floor_ms=floor_ms,
+                     floor_body_ms=floor_body_ms)
     # the comparison's launches are not the main path's
     K.LAUNCHES.update(launches0)
     print("  " + "; ".join(rows), flush=True)
     phase("flow-kernels", time.perf_counter() - t0, rows=KERNEL_ROWS[-1],
-          **{f"{n}_ms": round(f["ms"], 5) for n, f in out.items()},
+          **{f"{n}_ms": round(f["ms"], 6) for n, f in out.items()},
+          **{f"{n}_graph_ms": round(f["graph_ms"], 6)
+             for n, f in out.items()},
           **{f"{n}_plain_ms": round(f["plain_ms"], 5)
-             for n, f in out.items()}, bits_equal=True)
+             for n, f in out.items()},
+          floor_ms=round(floor_ms, 6),
+          floor_body_ms=round(floor_body_ms, 6), check_rows=len(CHECK_ROWS),
+          graph_executions=GRAPH_EXECS, bits_equal=True)
     return out
 
 
+def count_executions(name, rep):
+    """Record a card run's kernel executions (the device counters, read
+    and zeroed) beside its passes and windows, for the kernels line."""
+    from shadow_tpu_torch.core import kernels as K
+    ex = K.executions(reset=True)
+    CELL_EXECS[name] = {n: {"executions": v,
+                            "a_pass": round(v / max(rep.passes, 1), 4),
+                            "a_window": round(v / max(rep.windows, 1), 4)}
+                        for n, v in ex.items()}
+    return ex
+
+
 def kernels_line(figures, launches, executions):
-    """The contract's kernels line: each kernel's figures from phase 30
-    and its launches on the main path (phase 3's run)."""
+    """The contract's kernels line: each kernel's figures from phase 30,
+    its launches on the main path (phase 3's run) and its executions
+    on the cells that ran (phases 3, 4 and 5)."""
     what = {"pass_flags": "the drain pass's dispatch bitmap and go-on flag",
             "advance": "the window boundary: next [ws, we), counters"}
     return {"kernels": [
@@ -1630,9 +1802,14 @@ def kernels_line(figures, launches, executions):
                      + " for the captured chunk)",
          "launches": launches[n], "executions": executions[n],
          "max_abs_err": f["max_abs_err"], "ms": round(f["ms"], 6),
+         "graph_ms": round(f["graph_ms"], 6),
+         "graph_ms_at": f["graph_ms_at"],
+         "floor_ms": round(f["floor_ms"], 6),
+         "floor_body_ms": round(f["floor_body_ms"], 6),
          "plain_ms": round(f["plain_ms"], 6),
          "bound_ms": round(f["bound_ms"], 6), "bound_by": "bytes",
-         "library_ms": None, "rows": KERNEL_ROWS[-1]}
+         "library_ms": None, "rows": KERNEL_ROWS[-1],
+         "cells": {c: e[n] for c, e in CELL_EXECS.items()}}
         for n, f in figures.items()]}
 
 
@@ -2021,11 +2198,14 @@ def cbrt_phase():
 def socks10k_phase(defs):
     """5. socks10k through Simulation on the card, on the graph path,
     then the replays of one of its chunks (``ChunkSpan``)."""
+    from shadow_tpu_torch.core import kernels as K
     t0 = time.perf_counter()
     sim = socks10k_sim()
     span = ChunkSpan(SOCKS_SPAN_NS)
+    K.executions(reset=True)
     with span.attached():
         rep = sim.run()
+    count_executions("socks10k", rep)
     s = rep.summary()
     st = rep.stats
     from shadow_tpu_torch.apps.base import APP_SOCKS_CLIENT

@@ -65,6 +65,7 @@ _SIGS = {
                       _VP, _U64],
     "sf_advance": [_VP, _VP, _VP, _VP, _INT, _VP, _INT, _U64],
     "sf_exec_counts": [ctypes.POINTER(_U64), _INT],
+    "sf_empty": [_VP, _INT, _INT],
 }
 
 

@@ -341,3 +341,80 @@ def test_telemetry_cuda_equals_cpu(cuda_device):
     bad = [f for f in out[0] if not np.array_equal(out[0][f], out[1][f])]
     assert not bad, bad
     assert out[0]["tr_drop"].sum() > 0
+
+
+def _on_card(a, dev, offset=0):
+    """`a` (or None) on `dev` as a view `offset` elements into a larger
+    tensor."""
+    if a is None:
+        return None
+    return t(np.concatenate([np.zeros(offset, a.dtype), a])).to(dev)[offset:]
+
+
+@pytest.mark.cuda
+def test_flow_kernels_equal_plain(cuda_device):
+    """The chunk kernels (``csrc/flow.cu``: pass_flags, advance) equal
+    their plain versions on the CPU, bit for bit, at the edge row
+    counts, contiguous and on views one element in: random, idle and
+    end-of-range codes, a stop bit, queues and outboxes at SIMTIME_MAX.
+    Codes outside the range, which only the kernel takes, equal the
+    numpy restatement. Then 24 executions of each in one captured
+    graph, each with its own inputs and outputs, replayed three times:
+    a partial or a counter left dirty would show."""
+    from shadow_tpu_torch.core import kernels as K
+    from torch_kernels_np import (EDGE_ROWS, flag_cases, flag_rows,
+                                  pass_flags_np, window_rows,
+                                  window_scalars_np)
+    dev = cuda_device
+    launches = dict(K.LAUNCHES)
+    for H in EDGE_ROWS:
+        for off in (0, 1):
+            for rows in ("random", "idle", "ends", "outside"):
+                code, feat = flag_rows(H, rows, seed=H + off)
+                for c, f, *rest in flag_cases(code, feat):
+                    got = K.pass_flags(_on_card(c, dev, off),
+                                       _on_card(f, dev, off), *rest)
+                    want = (pass_flags_np(c, f, *rest) if rows == "outside"
+                            else K.pass_flags_plain(
+                                t(c), _on_card(f, "cpu"), *rest).tolist())
+                    assert got.cpu().tolist() == want, (H, off, rows)
+            for queues in ("random", "empty", "outboxes"):
+                rows_np = window_rows(H, queues, seed=H + off)
+                eq, ob, cnt = (_on_card(a, dev, off) for a in rows_np)
+                for seed in range(2):
+                    W0 = torch.tensor(window_scalars_np(seed, H))
+                    for mode in (K.ADV_OPEN, K.ADV_SHIP, K.ADV_STEP):
+                        got = K.advance(eq, ob, cnt, W0.to(dev), mode)
+                        want = K.advance_plain(*map(t, rows_np),
+                                               W0.clone(), mode)
+                        assert torch.equal(got.cpu(), want), (H, off, mode)
+
+    cases = []
+    for i in range(24):
+        H, off, mode = EDGE_ROWS[i % len(EDGE_ROWS)], i % 2, i % 3
+        code, feat = flag_rows(H, "random", seed=100 + i)
+        c, f, *rest = flag_cases(code, feat)[mode]
+        rows_np = window_rows(H, "random", seed=100 + i)
+        W0 = torch.tensor(window_scalars_np(i, H))
+        cases.append(((c, f, *rest), rows_np, W0, mode, (
+            (_on_card(c, dev, off), _on_card(f, dev, off), *rest),
+            [_on_card(a, dev, off) for a in rows_np], W0.to(dev))))
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    flags = []
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _, _, _, mode, (fargs, rows, W) in cases:
+            flags.append(K.pass_flags(*fargs))
+            K.advance(*rows, W, mode)
+    for _ in range(3):
+        for _, _, W0, _, (_, _, W) in cases:
+            W.copy_(W0)
+        g.replay()
+        torch.cuda.synchronize()
+        for got, ((c, f, *rest), rows_np, W0, mode, (_, _, W)) in zip(
+                flags, cases):
+            assert got.cpu().tolist() == K.pass_flags_plain(
+                t(c), _on_card(f, "cpu"), *rest).tolist()
+            assert torch.equal(W.cpu(), K.advance_plain(
+                *map(t, rows_np), W0.clone(), mode))
+    K.LAUNCHES.update(launches)

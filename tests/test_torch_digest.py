@@ -16,6 +16,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 from shadow_tpu.apps.base import APP_BULK, APP_BULK_SERVER, APP_PHOLD
 from shadow_tpu.core.config import HostSpec, ProcessSpec, Scenario
@@ -85,11 +86,17 @@ def assert_same_chain(ref, port):
         assert mr[k] == mp[k], k
 
 
-def test_lossy_phold_chain_matches(tmp_path):
+@pytest.fixture(scope="module")
+def phold_chains(tmp_path_factory):
+    """The lossy phold's chains at cadence 1, once for the file."""
+    return chains(lossy_phold, tmp_path_factory.mktemp("phold"))
+
+
+def test_lossy_phold_chain_matches(phold_chains):
     """Cadence 1: one record per window plus the final one, equal to
     the reference's record by record; divergence.py calls them
     identical."""
-    ref, port, rrep, prep = chains(lossy_phold, tmp_path)
+    ref, port, rrep, prep = phold_chains
     assert prep.summary()["drop_net"] > 0
     assert np.array_equal(rrep.stats, prep.stats)
     assert_same_chain(ref, port)
@@ -113,13 +120,13 @@ def test_lossy_bulk_chain_matches(tmp_path):
     assert rc == 0
 
 
-def test_perturbed_state_is_pinned_to_window_and_section(tmp_path):
+def test_perturbed_state_is_pinned_to_window_and_section(phold_chains,
+                                                        tmp_path):
     """One NIC field of one host bumped after window 5: divergence.py
-    exits 1 and names the first record after it and the nic section;
-    the per-host digests name the host."""
-    base = str(tmp_path / "base.jsonl")
-    Simulation(lossy_phold(), engine_cfg=EngineConfig(num_hosts=4, **CFG),
-               device="cpu").run(digest=base, digest_every=1)
+    exits 1 against the file's unperturbed port chain and names the
+    first record after it and the nic section; the per-host digests
+    name the host."""
+    base = phold_chains[1]
     sim = Simulation(lossy_phold(),
                      engine_cfg=EngineConfig(num_hosts=4, **CFG),
                      device="cpu")

@@ -25,6 +25,7 @@ import torch_dist_worker as W  # noqa: E402
 
 from shadow_tpu_torch.engine.checkpoint import resolve_latest  # noqa: E402
 from shadow_tpu_torch.engine.sim import Simulation  # noqa: E402
+from torch_threads import one_torch_thread_everywhere  # noqa: E402,F401
 
 
 def _free_port():

@@ -36,6 +36,7 @@ from shadow_tpu_torch.fleet.worker import (build_batch_argv,
                                            build_child_argv)
 
 from test_fleet import PHOLD_CAPS, PHOLD_XML
+from torch_threads import one_torch_thread_everywhere  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 

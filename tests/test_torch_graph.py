@@ -13,9 +13,8 @@
   CUDA graph capture records it) and under a TorchFunctionMode that
   raises on any read of a tensor's value on the host, which shows on
   the CPU that the chunk can be captured. The guard is checked live on
-  the eager flow's reads.
-- The kernels' plain versions (``core/kernels.py``) equal the
-  bookkeeping they replace, restated in numpy, on random states.
+  the eager flow's reads. The kernels' plain versions are held in
+  ``test_torch_kernels.py``.
 
 The reference compiles three shapes: the UDP cells share one
 EngineConfig, the TCP cell and the CPU-model cell have their own.
@@ -37,9 +36,7 @@ from shadow_tpu.engine.state import EngineConfig as RefEngineConfig
 from shadow_tpu_torch.__main__ import main as port_cli
 from shadow_tpu_torch.core import flow as FL
 from shadow_tpu_torch.core import kernels as K
-from shadow_tpu_torch.core.simtime import SIMTIME_MAX
 from shadow_tpu_torch.engine import window as WN
-from shadow_tpu_torch.engine.defs import EV_NULL, N_EVENT_KINDS
 from shadow_tpu_torch.engine.sim import Simulation
 from shadow_tpu_torch.engine.state import EngineConfig
 
@@ -177,88 +174,6 @@ def test_guard_catches_host_reads():
             sim.hosts.eq_next.min().item()
         with pytest.raises(AssertionError, match="host read"):
             torch.tensor([1, 2])
-
-
-def _pass_flags_np(code, feat, n_codes, n_bits, null, cont_mask, stop_mask):
-    present = np.zeros(n_codes, np.int32)
-    present[np.unique(code)] = 1
-    word = int(np.bitwise_or.reduce(feat)) if feat is not None and len(
-        feat) else 0
-    bits = [(word >> j) & 1 for j in range(n_bits)]
-    live = bool((code != null).any()) or bool(word & cont_mask)
-    return list(present) + bits + [int(live and not word & stop_mask)]
-
-
-def test_pass_flags_plain_matches_the_bitmap():
-    """The pass's dispatch bitmap, feature bits and go-on flag, as the
-    drain read them from its flags (``set`` of codes present, each part
-    any-of, nothing-ready or a hosted pause stops), on random rows."""
-    rng = np.random.RandomState(7)
-    n_codes = N_EVENT_KINDS + 7 * 11
-    for H, p_null, p_bit in ((1, 0.5, 0.3), (64, 0.9, 0.05),
-                             (1000, 1.0, 0.001), (300, 0.2, 0.0)):
-        code = np.where(rng.rand(H) < p_null, EV_NULL,
-                        rng.randint(0, n_codes, H)).astype(np.int32)
-        feat = ((rng.rand(H, 12) < p_bit) << np.arange(12)).sum(1).astype(
-            np.int32)
-        for f, nb, cm, sm in ((feat, 12, 1 << 10, 1 << 11),
-                              (None, 0, 0, 0)):
-            got = K.pass_flags(torch.from_numpy(code),
-                               None if f is None else torch.from_numpy(f),
-                               n_codes, nb, EV_NULL, cm, sm)
-            assert got.dtype == torch.int32
-            assert got.tolist() == _pass_flags_np(code, f, n_codes, nb,
-                                                  EV_NULL, cm, sm)
-    assert K.LAUNCHES == {"pass_flags": 0, "advance": 0}
-
-
-def _advance_np(eq_next, ob_next, ob_cnt, W, mode):
-    """The run loop's window boundary as the eager loop computed it on
-    the host (next_event_time, ob_cnt.sum(), next_wakeup)."""
-    W = list(W)
-    mq = int(eq_next.min())
-    if mode == K.ADV_SHIP:
-        W[K.W_OB0] = int(ob_cnt.sum())
-        W[K.W_EX] = int(W[K.W_OB0] > 0)
-        return W
-    if mode == K.ADV_STEP:
-        progressed = W[K.W_RAN] or int(ob_cnt.sum()) < W[K.W_OB0]
-        nt = min(mq, int(ob_next.min())) if progressed else mq
-        W[K.W_WS] = nt
-        W[K.W_WE] = SIMTIME_MAX if nt == SIMTIME_MAX else nt + W[K.W_JUMP]
-        W[K.W_I] += 1
-    ws = W[K.W_WS]
-    W[K.W_CONT] = int(W[K.W_I] < W[K.W_MAXW] and ws < W[K.W_STOP]
-                      and ws < SIMTIME_MAX)
-    W[K.W_WEFF] = min(W[K.W_WE], W[K.W_STOP])
-    W[K.W_RAN] = int(mq < W[K.W_WEFF])
-    return W
-
-
-def test_advance_plain_matches_the_eager_advance():
-    """Each advance mode equals the eager loop's host arithmetic on
-    random queues and outboxes, empty ones and the stop time included."""
-    rng = np.random.RandomState(11)
-    for H in (1, 7, 500):
-        for trial in range(12):
-            eq = rng.randint(0, 5 * 10**9, H).astype(np.int64)
-            ob = rng.randint(0, 5 * 10**9, H).astype(np.int64)
-            eq[rng.rand(H) < (0.5 if trial % 3 else 1.0)] = SIMTIME_MAX
-            ob[rng.rand(H) < (0.5 if trial % 2 else 1.0)] = SIMTIME_MAX
-            cnt = rng.randint(0, 3, H).astype(np.int32)
-            W = [int(v) for v in WN.window_scalars(
-                int(rng.randint(0, 4 * 10**9)), 0,
-                int(rng.choice([3 * 10**9, 6 * 10**9])), 10**7,
-                int(rng.randint(1, 4))).tolist()]
-            W[K.W_WE] = W[K.W_WS] + 10**7
-            W[K.W_I] = int(rng.randint(0, 3))
-            W[K.W_RAN], W[K.W_OB0] = int(rng.randint(0, 2)), int(
-                rng.randint(0, 2 * H))
-            for mode in (K.ADV_OPEN, K.ADV_SHIP, K.ADV_STEP):
-                got = K.advance(torch.from_numpy(eq), torch.from_numpy(ob),
-                                torch.from_numpy(cnt),
-                                torch.tensor(W, dtype=torch.int64), mode)
-                assert got.tolist() == _advance_np(eq, ob, cnt, W, mode)
 
 
 def test_prewarm_on_the_cpu_matches_the_shape_fingerprint(capsys):

@@ -139,6 +139,25 @@ def run_both(make, tmp_path, **run_kw):
     return rrep, prep, psim
 
 
+@pytest.fixture(scope="module")
+def shim_runs(epclient, tmp_path_factory):
+    """The plain shim client on both packages, once for the file, with
+    heartbeats every sim-second and both metrics registries installed
+    -> (its directory, ref report, port report, the registries'
+    snapshots by package)."""
+    from shadow_tpu.obs import metrics as RM
+    d = tmp_path_factory.mktemp("shim")
+    reg, rreg = M.install(), RM.install()
+    try:
+        rrep, prep, _ = run_both(lambda t: scen(shim_client(
+            t + ".out", epclient)), d, heartbeat_s=1)
+        snaps = {"ref": rreg.snapshot(), "port": reg.snapshot()}
+    finally:
+        M.finish()
+        RM.finish()
+    return d, rrep, prep, snaps
+
+
 def test_shim_host_down_and_up_respawns(epclient, tmp_path):
     """The child is SIGKILLed mid-upload at 3 s; at 4 s a fresh one
     starts its uploads over and finishes them."""
@@ -166,14 +185,14 @@ def test_python_app_host_down(tmp_path):
     assert rep.summary()["hosted_failures"] == 1
 
 
-def test_checkpoint_resume_from_hosted_sidecar(epclient, tmp_path):
+def test_checkpoint_resume_from_hosted_sidecar(epclient, shim_runs,
+                                              tmp_path):
     """Run B checkpoints every 0.25 sim-s; a fresh Simulation resumes
     from a mid-run snapshot (its child respawned and fast-forwarded by
-    journal replay) and ends with run A's chain (A equals the
-    reference's)."""
-    _, rep_a, _ = run_both(lambda t: scen(shim_client(t + ".out",
-                                                      epclient)), tmp_path)
-    chain_a = open(tmp_path / "port.jsonl", "rb").read()
+    journal replay) and ends with run A's chain (A, the file's shim run,
+    equals the reference's)."""
+    d, _, rep_a, _ = shim_runs
+    chain_a = open(d / "port.jsonl", "rb").read()
     base, dg_b = str(tmp_path / "ck"), str(tmp_path / "b.jsonl")
     out_b = str(tmp_path / "b.out")
     Simulation(scen(shim_client(out_b, epclient)), device="cpu").run(
@@ -241,21 +260,11 @@ _MEASURED = re.compile(r",rss=\d+|,dev=\d+|dev-peak-gib=[^,]*,|waste=[^,]*,|"
                        r"maxrss-gib=.*$")
 
 
-def test_heartbeat_rss_and_shim_metrics(epclient, tmp_path):
-    """Heartbeats every sim-second: equal lines once the process columns
-    are removed, and the live child's [ram] line carries rss=; the
-    shim's per-op counts equal the reference's."""
-    snaps = {}
-    reg = M.install()
-    from shadow_tpu.obs import metrics as RM
-    rreg = RM.install()
-    try:
-        rrep, prep, _ = run_both(lambda t: scen(shim_client(
-            t + ".out", epclient)), tmp_path, heartbeat_s=1)
-        snaps = {"ref": rreg.snapshot(), "port": reg.snapshot()}
-    finally:
-        M.finish()
-        RM.finish()
+def test_heartbeat_rss_and_shim_metrics(shim_runs):
+    """Heartbeats every sim-second (the file's shim run): equal lines
+    once the process columns are removed, and the live child's [ram]
+    line carries rss=; the shim's per-op counts equal the reference's."""
+    _, rrep, prep, snaps = shim_runs
     assert ([_MEASURED.sub("", ln) for ln in rrep.heartbeats]
             == [_MEASURED.sub("", ln) for ln in prep.heartbeats])
     assert any(",client," in ln and ",rss=" in ln

@@ -81,10 +81,18 @@ def ref_phold(tmp_path_factory):
     return rep, chain, base
 
 
-def test_phold_mesh_matches_single_and_reference(ref_phold):
-    ref = ref_phold[0]
+@pytest.fixture(scope="module")
+def port_phold():
+    """The port's runs of phold-16, 5 sim-s, alone and on an 8-shard
+    mesh (its default all-to-all exchange) -> (single, mesh) reports."""
     _, single = _port(lambda: phold_scenario(n=16, stop=5))
-    sim, sharded = _port(lambda: phold_scenario(n=16, stop=5), mesh8())
+    _, sharded = _port(lambda: phold_scenario(n=16, stop=5), mesh8())
+    return single, sharded
+
+
+def test_phold_mesh_matches_single_and_reference(ref_phold, port_phold):
+    ref = ref_phold[0]
+    single, sharded = port_phold
     assert np.array_equal(ref.stats, single.stats)
     assert np.array_equal(single.stats, sharded.stats)
     assert ref.windows == single.windows == sharded.windows
@@ -191,11 +199,11 @@ def test_digest_chain_and_snapshots_cross_packages(ref_phold, tmp_path):
     assert _read(chain) == _read(ref_chain)
 
 
-def test_exchange_v1_matches_v2():
-    def run(a2a):
-        return _port(lambda: phold_scenario(n=16, stop=5), mesh8(),
-                     cfg=dict(exchange_a2a=a2a))[1]
-    v2, v1 = run(True), run(False)
+def test_exchange_v1_matches_v2(port_phold):
+    v2 = port_phold[1]
+    v1 = _port(lambda: phold_scenario(n=16, stop=5), mesh8(),
+               cfg=dict(exchange_a2a=False))[1]
+    assert v2.shards == 8
     assert np.array_equal(v1.stats, v2.stats)
     assert v1.windows == v2.windows
     assert v1.summary()["defer_a2a"] == v2.summary()["defer_a2a"] == 0

@@ -16,6 +16,8 @@ from shadow_tpu.net import sack as RS
 
 from shadow_tpu_torch.net import sack as PS
 
+from torch_threads import one_torch_thread_everywhere  # noqa: F401
+
 R = 4096
 K = RS.K
 

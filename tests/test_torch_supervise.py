@@ -25,6 +25,7 @@ from shadow_tpu_torch.engine.state import EngineConfig
 from shadow_tpu_torch.engine.supervisor import Supervisor
 
 from test_until_complete import PHOLD_CAPS, PHOLD_XML
+from torch_threads import one_torch_thread_everywhere  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 
