@@ -4,27 +4,33 @@
 
 Drives ``shadow_tpu_torch`` through its API and CLI on the card and
 checks each phase; any failed check raises and the script exits
-non-zero. Every single-device modeled run on the card takes the graph
-path — one captured CUDA graph replayed a chunk, one host read a chunk
-— and the script fails a run that does not (``check_graph_runs``, in
-every process). Phases:
+non-zero. Every modeled run on the card takes the graph path — one
+captured CUDA graph replayed a chunk, one host read a chunk — whether
+single-device, a batch of lanes or a mesh whose shards share the card
+in one process, and the script fails a run that does not
+(``check_graph_runs``, in every process; ``batch_of`` for batches).
+Phases:
 
 1. device   — the card (nvidia-smi name and power limit), torch/CUDA.
 30. flow-kernels — first, as it builds the kernel library
               (``csrc/flow.cu`` through nvcc into build/kernels, or loads
               it): the pass-flags and advance kernels bit-equal to their
               plain versions on the card at 1 to 100,003 rows
-              (CHECK_ROWS), contiguous and on views one element into a
-              larger tensor, and across 64 executions in one captured
-              graph, each with its own inputs and outputs, replayed
-              twice; at 4,096, 10,000 and 100,000 rows their times (CUDA
-              events) launched eagerly (``ms``) and as 200 launches
-              captured in one graph (``graph_ms``), beside an empty
-              kernel's in a graph (``floor_ms``; ``floor_body_ms`` inside
-              a conditional node's body, as the chunk captures it), the
-              plain versions' and the bounds. The timed graphs replay
-              the same inputs, which stay in L2 as the chunk's rows do
-              (the drain has just written them); the bounds are HBM's.
+              (CHECK_ROWS), and advance_lanes at 1, 2, 4 and 7 lanes of
+              1 to 25,001 rows (LANE_CHECK, the timed 4,096 and 25,000
+              among them), contiguous and on views one element into a
+              larger tensor, and each across 56-64 executions in one
+              captured graph, each with its own inputs and outputs,
+              replayed twice; at 4,096, 10,000 and 100,000
+              rows (advance_lanes at 4 x 4,096 and 4 x 25,000) their
+              times (CUDA events) launched eagerly (``ms``) and as 200
+              launches captured in one graph (``graph_ms``), beside an
+              empty kernel's in a graph (``floor_ms``; ``floor_body_ms``
+              inside a conditional node's body, as the chunk captures
+              it), the plain versions' and the bounds. The timed graphs
+              replay the same inputs, which stay in L2 as the chunk's
+              rows do (the drain has just written them); the bounds are
+              HBM's.
 
 The timed phases run first, each alone on the card and the host:
 
@@ -55,10 +61,13 @@ The timed phases run first, each alone on the card and the host:
               the host's waits for the card).
 24. batch-phold-4096x4 — four lanes of phold-4096 (bench.py's shape,
               16,384 rows), seeds 1-4, 5 sim-s, through
-              ``serving.batch.run_batch``: each lane's digest chain,
-              stats, windows and passes equal its seed's run alone on
-              the card; prints the batch wall, the summed events/s, the
-              stacked passes and the four walls alone.
+              ``serving.batch.run_batch`` on the graph path (the batched
+              chunk, one captured graph a chunk, one host read a chunk):
+              each lane's digest chain, stats, windows and passes equal
+              its seed's run alone on the card; prints the batch wall,
+              the summed events/s, the stacked passes, the graph path's
+              figures and the four walls alone. The main path of
+              advance_lanes' launches, which it counts.
 5. socks10k — 10,000 hosts (1,000 bulkservers, 1,000 socksproxies,
               8,000 socksclients fetching 48 KiB through one relay) on
               the ER-300 stand-in topology, runahead 10 ms, through
@@ -126,21 +135,30 @@ their walls are taken beside the other processes):
               cuda and on cpu: equal stats, windows, Hosts fields (the
               wake rings included) and what the apps saw.
 26. mesh-phold-4096x4 — phold-4096 on a four-shard mesh on the card
-              (``parallel.shard.make_mesh(4)``, every shard on cuda:0):
-              the stats, windows and digest chain (every 64 windows) of
-              an untimed single run of phase 3's shape, whose stats and
-              windows equal phase 3's; prints the wall, the passes and
-              events per shard and their imbalance. Then
+              (``parallel.shard.make_mesh(4)``, every shard on cuda:0, so
+              the shards are row views of one stacked state and the
+              sharded chunk runs as one captured graph a chunk),
+              prewarmed (``Simulation.prewarm(mesh=...)`` captures it;
+              the run replays it, capturing nothing): the stats, windows
+              and digest chain (every 64 windows) of an untimed single
+              run of phase 3's shape, whose stats and windows equal phase
+              3's; prints the wall, the graph path's figures, the
+              kernels' launches, the passes and events per shard and
+              their imbalance. Then
 27. mesh-gossip-100k — examples/gossip-100k.xml as written, 100,000 hosts
               on four shards: phase 4's stats and windows; the same
-              figures. 26 and 27 run in one process of their own, started
-              with 7's (‡ in PERF.md: their walls are taken beside the
-              other processes).
+              figures, and the wall of phase 4's run again right after
+              in this process (``single_here_wall_s``, beside the same
+              other processes). 26 and 27 run in one process of their
+              own, started with 7's (‡ in PERF.md: their walls are
+              taken beside the other processes).
 28. mesh-tcp-gpu=cpu — phase 11's lossy 2-hop SOCKS shape to 30 sim-s on
               four shards with two-slot exchange buckets (``a2acap=2``):
               bursts defer into ST_DEFER_A2A (> 0), and the card's mesh
-              gives the CPU mesh's stats, windows and digest chain (the
-              CPU half in a process of its own, started with 7's).
+              on the graph path gives its eager path's
+              (``graph=False``) and the CPU mesh's stats, windows,
+              passes a shard and digest chain (the CPU half in a process
+              of its own, started with 7's).
 29. dist-phold — phold-4096 on two processes of two shards each, through
               ``parallel.dist`` on the card (gloo with fewer than two
               cards, as NCCL refuses two ranks on one; nccl otherwise;
@@ -180,14 +198,22 @@ their walls are taken beside the other processes):
               ``Simulation.prewarm`` replays the prewarmed graph with the
               same stats and chain; prints the captures, the
               capture wall, replays, host reads a chunk, the graph's pool
-              bytes and conditional nodes, and both walls.
+              bytes and conditional nodes, and both walls. Then two
+              batches on both paths (``run_batch(graph=False)``): four
+              phold-1024 lanes (seeds 1-4, 5 sim-s) and two lanes of the
+              2-hop lossy SOCKS shape to 30 sim-s (TCP lanes through
+              ``exchange_lanes``): each lane's chain, stats, windows and
+              passes equal.
 32. aot-cache — two children on examples/ping.xml: ``--prewarm --aot-cache
               DIR`` captures the chunk, then a run with ``--aot-cache DIR``
               builds no library and loads it from DIR (a disk hit).
 
 ``--phases tgen-1k-cpu`` (never part of the default run) holds tgen-1k
 itself, all 1,000 hosts to 2.25 sim-s, on cuda against cpu: equal
-stats, windows and Hosts fields.
+stats, windows and Hosts fields. ``--phases paths-alone`` (never part
+of the default run either) times batch-phold-4096x4, mesh-phold-4096x4
+and mesh-gossip-100k on both paths, alone in this process: the graph
+path, then ``graph=False``; equal stats, windows and passes.
 
 ``python3 chip_smoke.py --profile`` instead measures where the wall
 goes in phold-4096 and gossip-100k: a per-phase wall split (drain,
@@ -202,10 +228,12 @@ the port's build directory (``shadow_tpu_torch/hosting/build.py``) at
 first use; a failed build fails the run.
 
 The JAX package has no Pallas kernel. The port's hand-written kernels
-are the chunk's two reductions (``csrc/flow.cu``: pass flags and
-advance); the ``kernels`` line lists them with phase 30's figures,
-phase 3's launches and the executions a pass and a window of phases 3,
-4 and 5. The last line is the contract line
+are the chunk's reductions (``csrc/flow.cu``: pass flags, advance and
+advance_lanes); the ``kernels`` line lists them with phase 30's
+figures, the launches of each on its main path (phase 3's run;
+advance_lanes: phase 24's batch), the launches counted on each path
+(phases 3, 24 and 26, each with the counts set to 0 just before it)
+and the executions a pass and a window of phases 3, 4, 5 and 24. The last line is the contract line
 ``{"ok": true, "device": {...}}``. With no CUDA device the script exits
 non-zero before printing any result.
 """
@@ -1146,20 +1174,33 @@ def _phases(want, only, canonicalize_state, defs, R, kind, t_all, tmp):
     if want("ping"):
         ping_phase(cli)
     # 3. is the main path whose kernel launches the kernels line counts
-    timed_phold = launches = executions = None
+    timed_phold = launches = None
+    executions, by_path = {}, {}
     if want("phold-4096"):
         K.executions(reset=True)
-        K.LAUNCHES.update(pass_flags=0, advance=0)
+        K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
         timed_phold = phold_phase()
-        launches = dict(K.LAUNCHES)
-        executions = count_executions("phold-4096", timed_phold)
-        if not all(launches.values()) or not all(executions.values()):
+        launches = by_path["phold-4096"] = dict(K.LAUNCHES)
+        ex = count_executions("phold-4096", timed_phold)
+        executions.update(pass_flags=ex["pass_flags"], advance=ex["advance"])
+        if not (launches["pass_flags"] and launches["advance"]
+                and executions["pass_flags"] and executions["advance"]):
             fail(f"phold-4096 did not go through every kernel: launches "
-                 f"{launches}, executions {executions}")
+                 f"{launches}, executions {ex}")
     if want("passcope"):
         passcope_phase()
     if want("batch-phold-4096x4"):
-        batch_phase()
+        # 24.'s batch is the main path of advance_lanes' launches
+        batch, lanes = batch_phase()
+        by_path["batch-phold-4096x4"] = lanes
+        ex = count_executions("batch-phold-4096x4", batch)
+        executions["advance_lanes"] = ex["advance_lanes"]
+        if launches is not None:
+            launches = dict(launches, advance_lanes=lanes["advance_lanes"])
+        if not (lanes["advance_lanes"] and lanes["pass_flags"]
+                and ex["advance_lanes"] and ex["pass_flags"]):
+            fail(f"batch-phold-4096x4 did not go through its kernels: "
+                 f"launches {lanes}, executions {ex}")
     plain_gossip = gossip_phase() if want("gossip-100k") else None
     if want("gossip-100k-telemetry"):
         gossip_telemetry_phase(plain_gossip)
@@ -1171,6 +1212,8 @@ def _phases(want, only, canonicalize_state, defs, R, kind, t_all, tmp):
         tgen1k_phase(defs)
     if only and "tgen-1k-cpu" in only:
         tgen1k_cpu_phase(canonicalize_state)
+    if only and "paths-alone" in only:
+        paths_alone_phase()
 
     # 7., 13. (with its CPU halves), 17., 20. (with its CPU twin) and
     # 26.-27. in processes of their own on the same card, beside 8.-12.,
@@ -1233,9 +1276,12 @@ def _phases(want, only, canonicalize_state, defs, R, kind, t_all, tmp):
             mesh_tcp_phase(mesh_tcp_cpu, tmp)
         single_phold = None
         if meshes:
-            (err, single_phold), _ = meshes.result()
+            (err, got), _ = meshes.result()
             if err:
                 fail(f"{meshes.name}: {err}")
+            single_phold, mesh_launches = got
+            if mesh_launches:
+                by_path["mesh-phold-4096x4"] = mesh_launches
         if dist_ranks:
             dist_phold_finish(dist_ranks, dist_chain,
                               single_phold, single_chain)
@@ -1258,8 +1304,10 @@ def _phases(want, only, canonicalize_state, defs, R, kind, t_all, tmp):
                 child.stop()
 
     print(f"total wall {time.perf_counter() - t_all:.1f}s")
-    if figures is not None and launches is not None:
-        print(json.dumps(kernels_line(figures, launches, executions)))
+    if (figures is not None and launches is not None
+            and "advance_lanes" in executions):
+        print(json.dumps(kernels_line(figures, launches, executions,
+                                      by_path)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -1336,10 +1384,29 @@ def census_phase(socks):
           sections=json.dumps(mem["sections"], separators=(",", ":")))
 
 
-def batch_phase(device="cuda", n=4096, seeds=(1, 2, 3, 4)):
-    """24. batch-phold-4096x4: each lane equals its seed's run alone."""
-    import tempfile
+def batch_of(reps, name):
+    """The graph path's figures of a card batch, which must have taken
+    it (one replay and one host read a chunk), as phase-line fields."""
+    ex = reps[0].execution
+    if not (ex.get("path") == "graph" and ex["host_reads_per_chunk"] == 1.0
+            and ex["replays"] == ex["chunks"]):
+        fail(f"{name}: the card's batch ran {ex}")
+    return {"path": "graph", "captures": ex["captures"],
+            "capture_wall_s": round(ex["capture_wall_s"], 3),
+            "replays": ex["replays"],
+            "host_reads_per_chunk": ex["host_reads_per_chunk"],
+            "pool_bytes": ex["pool_bytes"]}
 
+
+def batch_phase(device="cuda", n=4096, seeds=(1, 2, 3, 4)):
+    """24. batch-phold-4096x4 on the graph path: each lane equals its
+    seed's run alone -> (the stacked passes and the lanes' windows, the
+    kernels' launches in the batch's run; the device's execution counts
+    are left as that run made them)."""
+    import tempfile
+    import types
+
+    from shadow_tpu_torch.core import kernels as K
     from shadow_tpu_torch.engine.sim import Simulation
     from shadow_tpu_torch.serving.batch import run_batch
     t0 = time.perf_counter()
@@ -1358,8 +1425,12 @@ def batch_phase(device="cuda", n=4096, seeds=(1, 2, 3, 4)):
         t1 = time.perf_counter()
         sims = [Simulation(scen(sd), engine_cfg=phold_cfg(n),
                            device=device) for sd in seeds]
+        # the kernels' counts of the batch alone, for the kernels line
+        K.executions(reset=True)
+        K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
         reps = run_batch(sims, digest_paths=[
             os.path.join(d, f"lane{sd}.jsonl") for sd in seeds])
+        launches = dict(K.LAUNCHES)
         t2 = time.perf_counter()
         for sd, rep in zip(seeds, reps):
             one = alone[sd]
@@ -1375,10 +1446,11 @@ def batch_phase(device="cuda", n=4096, seeds=(1, 2, 3, 4)):
                     != (one.windows, one.passes)):
                 fail(f"batch-phold-{n}x{len(seeds)}: lane of seed {sd}: "
                      "stats, windows or passes differ from its run alone")
+    name = f"batch-phold-{n}x{len(seeds)}"
     events = sum(r.events for r in reps)
     wall = reps[0].wall_seconds
     walls = [round(alone[sd].wall_seconds, 3) for sd in seeds]
-    phase(f"batch-phold-{n}x{len(seeds)}", time.perf_counter() - t0,
+    phase(name, time.perf_counter() - t0,
           batch_wall_s=round(wall, 3),
           events=events, events_per_s=round(events / wall, 1),
           stacked_passes=reps[0].batch["stacked_passes"],
@@ -1389,7 +1461,64 @@ def batch_phase(device="cuda", n=4096, seeds=(1, 2, 3, 4)):
           alone_events_per_s=json.dumps(
               [round(alone[sd].events_per_sec, 1) for sd in seeds]),
           alone_phase_s=round(t1 - t0, 3),
-          batch_phase_s=round(t2 - t1, 3))
+          batch_phase_s=round(t2 - t1, 3), **batch_of(reps, name))
+    return types.SimpleNamespace(passes=reps[0].batch["stacked_passes"],
+                                 windows=max(r.windows for r in reps)), \
+        launches
+
+
+def paths_alone_phase(seeds=(1, 2, 3, 4)):
+    """--phases paths-alone: the cells that take the graph path as a
+    batch or a one-card mesh — batch-phold-4096x4, mesh-phold-4096x4,
+    mesh-gossip-100k — each run on the graph path and then with
+    ``graph=False``, alone in this process: equal stats,
+    windows and passes; prints both walls and host reads a chunk. The
+    kernel library is built or loaded first, outside the walls (each
+    graph wall holds its capture, as a run's does)."""
+    from shadow_tpu_torch.core import kernels as K
+    from shadow_tpu_torch.engine.sim import Simulation
+    from shadow_tpu_torch.parallel.shard import make_mesh
+    from shadow_tpu_torch.serving.batch import run_batch
+    t0 = time.perf_counter()
+    K.lib()
+
+    def lanes(graph):
+        sims = []
+        for sd in seeds:
+            scen = phold_scenario(4096, BATCH_STOP_S)
+            scen.seed = sd
+            sims.append(Simulation(scen, engine_cfg=phold_cfg(4096),
+                                   device="cuda"))
+        reps = run_batch(sims, graph=graph)
+        return (reps[0].wall_seconds, reps[0].execution,
+                [(r.stats, r.windows, r.passes) for r in reps])
+
+    def mesh(mk, cfg, graph):
+        _, rep = run(mk(), cfg, "cuda", mesh=make_mesh(MESH_SHARDS, "cuda"),
+                     graph=graph)
+        return (rep.wall_seconds, rep.execution,
+                [(rep.stats, rep.windows, rep.shard_passes)])
+
+    cells = (
+        ("batch-phold-4096x4", lanes),
+        ("mesh-phold-4096x4", lambda g: mesh(
+            lambda: phold_scenario(4096, 5), phold_cfg(4096), g)),
+        ("mesh-gossip-100k", lambda g: mesh(
+            lambda: gossip_scenario(100_000), gossip_cfg(100_000), g)))
+    out = {}
+    for name, fn in cells:
+        (gw, gex, gres), (ew, eex, eres) = fn(True), fn(False)
+        if gex["path"] != "graph" or eex["path"] != "eager" or any(
+                not (a[0] == b[0]).all() or a[1:] != b[1:]
+                for a, b in zip(gres, eres)):
+            fail(f"paths-alone {name}: the paths differ ({gex['path']}, "
+                 f"{eex['path']})")
+        out[name] = {"graph_wall_s": round(gw, 3),
+                     "eager_wall_s": round(ew, 3),
+                     "eager_host_reads_per_chunk":
+                         round(eex["host_reads_per_chunk"], 1)}
+    phase("paths-alone", time.perf_counter() - t0,
+          walls=json.dumps(out, separators=(",", ":")))
 
 
 def fleet_run(device="cuda"):
@@ -1549,6 +1678,12 @@ KERNEL_ROWS = (4096, 10_000, 100_000)     # phold-4096, socks10k, gossip-100k
 # a block's width and one past it, the main path's counts and one past
 CHECK_ROWS = (1, 3, 1023, 1025, 4096, 4097, 10_000, 16_384, 100_000,
               100_003)
+# advance_lanes: the lane counts and rows a lane it is held at (among
+# them the timed shapes' rows, and one past each), and the batch shapes
+# it is timed at (batch-phold-4096x4, the main path of its launches;
+# four gossip-100k-sized lanes)
+LANE_CHECK = ((1, 2, 4, 7), (1, 3, 1025, 4096, 4097, 25_000, 25_001))
+LANE_SHAPES = ((4, 4096), (4, 25_000))
 GRAPH_EXECS = 64        # executions of each kernel in the checked graph
 GRAPH_LAUNCHES = 200    # launches of a kernel in a timed graph
 # the cells whose executions a pass and a window the kernels line gives
@@ -1706,14 +1841,77 @@ def _graph_errors(K):
     return err_f, err_a
 
 
+def _lane_inputs(K, B, H, seed, offset=0):
+    """advance_lanes' inputs for B lanes of H rows from a seed: the rows
+    (each a view `offset` elements in) and the lanes' window scalars,
+    lane b's window at 2 sim-s + b x 10 ms (`_window_in`), every third
+    lane frozen."""
+    *_, eq, ob, cnt = _kernel_inputs(B * H, seed, offset)
+    W = _window_in(K).repeat(B, 1)
+    W[:, K.W_CONT] = 1
+    W[::3, K.W_CONT] = 0
+    W[:, K.W_WS] += 10**7 * torch.arange(B, device=W.device)
+    return eq, ob, cnt, W
+
+
+def _lane_errors(K, B, H, seed, offset):
+    """advance_lanes against its plain version on one input set, every
+    mode, eagerly -> the largest absolute difference (W and G)."""
+    eq, ob, cnt, W0 = _lane_inputs(K, B, H, seed, offset)
+    err = 0
+    for mode in (K.ADV_OPEN, K.ADV_SHIP, K.ADV_STEP):
+        got = [W0.clone(), torch.zeros(K.W_LEN + 1, dtype=torch.int64,
+                                       device="cuda")]
+        want = [t.clone() for t in got]
+        K.advance_lanes(eq, ob, cnt, *got, mode)
+        K.advance_lanes_plain(eq, ob, cnt, *want, mode)
+        err = max([err] + [int((a - b).abs().max())
+                           for a, b in zip(got, want)])
+    return err
+
+
+def _lane_graph_errors(K):
+    """An execution of advance_lanes in one graph for every LANE_CHECK
+    shape, contiguous and on views one element in (the modes in turn),
+    replayed twice -> the largest absolute difference from the plain
+    version: a ticket left dirty would show."""
+    shapes = [(B, H, off) for B in LANE_CHECK[0] for H in LANE_CHECK[1]
+              for off in (0, 1)]
+    cases = [(_lane_inputs(K, B, H, 3000 + i, off), i % 3)
+             for i, (B, H, off) in enumerate(shapes)]
+    outs = [(W0.clone(), torch.zeros(K.W_LEN + 1, dtype=torch.int64,
+                                     device="cuda"))
+            for (*_, W0), _ in cases]
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for ((eq, ob, cnt, _), mode), (W, G) in zip(cases, outs):
+            K.advance_lanes(eq, ob, cnt, W, G, mode)
+    err = 0
+    for _ in range(2):
+        for ((*_, W0), _), (W, G) in zip(cases, outs):
+            W.copy_(W0)
+            G.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        for ((eq, ob, cnt, W0), mode), (W, G) in zip(cases, outs):
+            want = [W0.clone(), torch.zeros_like(G)]
+            K.advance_lanes_plain(eq, ob, cnt, *want, mode)
+            err = max(err, int((W - want[0]).abs().max()),
+                      int((G - want[1]).abs().max()))
+    return err
+
+
 def flow_kernels_phase():
-    """30. the chunk's two hand-written kernels against their plain
-    versions on the card, bits equal, at CHECK_ROWS (contiguous and on
-    views one element in) and across GRAPH_EXECS executions in one
-    graph; their times at the main path's row counts, eager (`ms`) and
-    in a graph (`graph_ms`), beside an empty kernel's in a graph
-    (`floor_ms`), the plain versions' and the bounds -> {kernel:
-    figures at the largest row count, with graph_ms at each}."""
+    """30. the chunk's three hand-written kernels against their plain
+    versions on the card, bits equal, at CHECK_ROWS (advance_lanes at
+    LANE_CHECK's lanes and rows a lane; contiguous and on views one
+    element in) and across GRAPH_EXECS executions in one graph
+    (advance_lanes: one a LANE_CHECK shape and offset); their
+    times at the main paths' row counts (advance_lanes at LANE_SHAPES),
+    eager (`ms`) and in a graph (`graph_ms`), beside an empty kernel's
+    in a graph (`floor_ms`), the plain versions' and the bounds ->
+    {kernel: figures at the largest row count (advance_lanes: at its
+    main path's shape), with graph_ms at each}."""
     from shadow_tpu_torch.core import kernels as K
     from shadow_tpu_torch.engine.window import _N_CODES
     t0 = time.perf_counter()
@@ -1730,6 +1928,16 @@ def flow_kernels_phase():
              f"executions in one graph: pass_flags {err[0]}, advance "
              f"{err[1]}")
     max_err = dict(zip(("pass_flags", "advance"), err))
+    lane_err = max(_lane_errors(K, B, H, B * H + off, off)
+                   for B in LANE_CHECK[0] for H in LANE_CHECK[1]
+                   for off in (0, 1))
+    if lane_err:
+        fail(f"flow-kernels: advance_lanes != plain by {lane_err}")
+    max_err["advance_lanes"] = _lane_graph_errors(K)
+    if max_err["advance_lanes"]:
+        fail(f"flow-kernels: advance_lanes != plain across "
+             f"{2 * len(LANE_CHECK[0]) * len(LANE_CHECK[1])} executions "
+             f"in one graph: {max_err['advance_lanes']}")
 
     def empty():
         K.check(K.lib().sf_empty(torch.cuda.current_stream().cuda_stream,
@@ -1762,7 +1970,25 @@ def flow_kernels_phase():
             o = out.setdefault(name, {"graph_ms_at": {}})
             o["graph_ms_at"][H] = round(f["graph_ms"], 6)
             o.update(f, max_abs_err=max_err[name], floor_ms=floor_ms,
-                     floor_body_ms=floor_body_ms)
+                     floor_body_ms=floor_body_ms, rows=H)
+    for B, H in LANE_SHAPES[::-1]:
+        eq, ob, cnt, W = _lane_inputs(K, B, H, B * H)
+        G = torch.zeros(K.W_LEN + 1, dtype=torch.int64, device="cuda")
+
+        def kernel():
+            K.advance_lanes(eq, ob, cnt, W, G, K.ADV_STEP)
+        f = dict(ms=_time_ms(kernel), graph_ms=_graph_ms(kernel),
+                 plain_ms=_time_ms(lambda: K.advance_lanes_plain(
+                     eq, ob, cnt, W, G, K.ADV_STEP)),
+                 bytes=20 * B * H + 2 * 8 * (B * K.W_LEN + 2))
+        f["bound_ms"] = f["bytes"] / HBM_BYTES_PER_S * 1e3
+        rows.append(f"advance_lanes@{B}x{H}: {f['ms']:.6f} ms, graph "
+                    f"{f['graph_ms']:.6f} (plain {f['plain_ms']:.5f}, "
+                    f"bound {f['bound_ms']:.6f})")
+        o = out.setdefault("advance_lanes", {"graph_ms_at": {}})
+        o["graph_ms_at"][f"{B}x{H}"] = round(f["graph_ms"], 6)
+        o.update(f, max_abs_err=max_err["advance_lanes"], floor_ms=floor_ms,
+                 floor_body_ms=floor_body_ms, rows=f"{B}x{H}")
     # the comparison's launches are not the main path's
     K.LAUNCHES.update(launches0)
     print("  " + "; ".join(rows), flush=True)
@@ -1774,6 +2000,7 @@ def flow_kernels_phase():
              for n, f in out.items()},
           floor_ms=round(floor_ms, 6),
           floor_body_ms=round(floor_body_ms, 6), check_rows=len(CHECK_ROWS),
+          lane_checks=len(LANE_CHECK[0]) * len(LANE_CHECK[1]),
           graph_executions=GRAPH_EXECS, bits_equal=True)
     return out
 
@@ -1790,17 +2017,21 @@ def count_executions(name, rep):
     return ex
 
 
-def kernels_line(figures, launches, executions):
+def kernels_line(figures, launches, executions, by_path):
     """The contract's kernels line: each kernel's figures from phase 30,
-    its launches on the main path (phase 3's run) and its executions
-    on the cells that ran (phases 3, 4 and 5)."""
+    its launches on its main path (phase 3's run; advance_lanes: phase
+    24's batch), the launches on each path counted (`by_path`) and its
+    executions on the cells that ran (phases 3, 4, 5 and 24)."""
     what = {"pass_flags": "the drain pass's dispatch bitmap and go-on flag",
-            "advance": "the window boundary: next [ws, we), counters"}
+            "advance": "the window boundary: next [ws, we), counters",
+            "advance_lanes": "the window boundary of stacked scenario "
+                             "lanes, a lane frozen when done"}
     return {"kernels": [
         {"name": n, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "none: shadow_tpu has no pl.pallas_call (" + what[n]
                      + " for the captured chunk)",
-         "launches": launches[n], "executions": executions[n],
+         "launches": launches[n], "executions": executions.get(n),
+         "launches_by_path": {p: c.get(n, 0) for p, c in by_path.items()},
          "max_abs_err": f["max_abs_err"], "ms": round(f["ms"], 6),
          "graph_ms": round(f["graph_ms"], 6),
          "graph_ms_at": f["graph_ms_at"],
@@ -1808,7 +2039,7 @@ def kernels_line(figures, launches, executions):
          "floor_body_ms": round(f["floor_body_ms"], 6),
          "plain_ms": round(f["plain_ms"], 6),
          "bound_ms": round(f["bound_ms"], 6), "bound_by": "bytes",
-         "library_ms": None, "rows": KERNEL_ROWS[-1],
+         "library_ms": None, "rows": f["rows"],
          "cells": {c: e[n] for c, e in CELL_EXECS.items()}}
         for n, f in figures.items()]}
 
@@ -1863,7 +2094,51 @@ def graph_eager_phase(canonicalize_state):
                   f"{g.wall_seconds:.3f}s eager_wall={e.wall_seconds:.3f}s "
                   f"eager_host_reads_per_chunk="
                   f"{e.execution['host_reads_per_chunk']:.1f}", flush=True)
+        n_lanes = socks_scenario(0.02, 2, 30).total_hosts()
+        for name, mk, cfg, seeds in (
+                ("batch-phold-1024x4", lambda: phold_scenario(1024, 5),
+                 phold_cfg(1024), (1, 2, 3, 4)),
+                ("batch-socks-multihop-lossy-x2",
+                 lambda: socks_scenario(0.02, 2, 30),
+                 EngineConfig(num_hosts=n_lanes, **socks_caps), (1, 2))):
+            _batch_graph_eager(name, mk, cfg, seeds, tmp)
     phase("graph=eager", time.perf_counter() - t0, chains_equal=True)
+
+
+def _batch_graph_eager(name, mk, cfg, seeds, tmp):
+    """A batch of `mk()` lanes (one a seed) on the card's graph path and
+    on its eager path (``run_batch(graph=False)``): each lane's digest
+    chain, stats, windows and passes equal, and the stacked passes."""
+    from shadow_tpu_torch.engine.sim import Simulation
+    from shadow_tpu_torch.serving.batch import run_batch
+    out = {}
+    for graph in (True, False):
+        sims = []
+        for sd in seeds:
+            scen = mk()
+            scen.seed = sd
+            sims.append(Simulation(scen, engine_cfg=cfg, device="cuda"))
+        paths = [os.path.join(tmp, f"{name}.{graph}.{sd}.jsonl")
+                 for sd in seeds]
+        reps = run_batch(sims, digest_paths=paths, digest_every=8,
+                         graph=graph)
+        out[graph] = (reps, [_chain(p) for p in paths])
+    (g, gch), (e, ech) = out[True], out[False]
+    if gch != ech or any(
+            not (a.stats == b.stats).all()
+            or (a.windows, a.passes, a.batch) != (b.windows, b.passes,
+                                                  b.batch)
+            for a, b in zip(g, e)):
+        fail(f"graph=eager {name}: a lane differs between the paths")
+    if e[0].execution["path"] != "eager":
+        fail(f"graph=eager {name}: graph=False ran {e[0].execution}")
+    fields = " ".join(f"{k}={v}" for k, v in batch_of(g, name).items())
+    print(f"  {name}: events={sum(r.events for r in g)} "
+          f"lane_windows={[r.windows for r in g]} "
+          f"stacked_passes={g[0].batch['stacked_passes']} {fields} "
+          f"graph_wall={g[0].wall_seconds:.3f}s "
+          f"eager_wall={e[0].wall_seconds:.3f}s eager_host_reads_per_chunk="
+          f"{e[0].execution['host_reads_per_chunk']:.1f}", flush=True)
 
 
 def aot_cache_phase():
@@ -1939,10 +2214,15 @@ def _read(path):
 
 
 def mesh_phold_phase(timed, chain, tmp):
-    """26. phold-4096 on four shards of the card: the stats, windows and
-    digest chain (every MESH_DIGEST_EVERY windows, to `chain`) of an
-    untimed single run, whose stats and windows equal phase 3's
-    (`timed`, None when phase 3 did not run) -> that single run."""
+    """26. phold-4096 on four shards of the card, prewarmed
+    (``Simulation.prewarm(mesh=...)`` captures the sharded chunk, which
+    the run replays): the stats, windows and digest chain (every
+    MESH_DIGEST_EVERY windows, to `chain`) of an untimed single run,
+    whose stats and windows equal phase 3's (`timed`, None when phase 3
+    did not run) -> (that single run, the mesh run's kernel launches,
+    which must include every kernel of the sharded chunk)."""
+    from shadow_tpu_torch.core import kernels as K
+    from shadow_tpu_torch.engine.sim import Simulation
     from shadow_tpu_torch.parallel.shard import make_mesh
     _, single = run(phold_scenario(4096, 5), phold_cfg(4096), "cuda",
                     digest=chain, digest_every=MESH_DIGEST_EVERY)
@@ -1950,11 +2230,21 @@ def mesh_phold_phase(timed, chain, tmp):
         _same_runs("phold-4096 with a chain", timed, single)
     t0 = time.perf_counter()
     path = os.path.join(tmp, "phold-mesh.jsonl")
-    _, rep = run(phold_scenario(4096, 5), phold_cfg(4096), "cuda",
-                 mesh=make_mesh(MESH_SHARDS, "cuda"), digest=path,
-                 digest_every=MESH_DIGEST_EVERY)
+    mesh = make_mesh(MESH_SHARDS, "cuda")
+    sim = Simulation(phold_scenario(4096, 5), engine_cfg=phold_cfg(4096),
+                     device="cuda")
+    K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+    info = sim.prewarm(mesh=mesh, digest_every=MESH_DIGEST_EVERY)
+    rep = sim.run(mesh=mesh, digest=path, digest_every=MESH_DIGEST_EVERY)
+    launches = dict(K.LAUNCHES)
     if rep.shards != MESH_SHARDS or not rep.device.startswith("cuda"):
         fail(f"mesh-phold-4096x4: shards={rep.shards} on {rep.device}")
+    if not (info["captured"] and rep.execution["captures"] == 0):
+        fail(f"mesh-phold-4096x4: the prewarmed run {info} captured "
+             f"again: {rep.execution}")
+    if not (launches["pass_flags"] and launches["advance"]):
+        fail(f"mesh-phold-4096x4 did not go through its kernels: "
+             f"{launches}")
     _same_runs("mesh-phold-4096x4", single, rep)
     records = _read(path).splitlines()
     if records != _read(chain).splitlines():
@@ -1963,8 +2253,9 @@ def mesh_phold_phase(timed, chain, tmp):
     phase("mesh-phold-4096x4", time.perf_counter() - t0, **rates(rep),
           single_wall_s=round(single.wall_seconds, 3),
           chain_records=len(records), chains_equal=True,
-          **shard_figures(rep))
-    return single
+          cache_scope=info["cache_scope"], launches=json.dumps(launches),
+          **graph_of(rep, "mesh-phold-4096x4"), **shard_figures(rep))
+    return single, launches
 
 
 def _single_of(rep):
@@ -1977,15 +2268,16 @@ def _single_of(rep):
 
 def _mesh_child(conn, phold_timed, chain, gossip_single, tmp):
     """A child process: phases 26 and 27, each run when its single run's
-    figures are given (False: not wanted) -> (None, 26's single run), or
-    (the failure, None)."""
+    figures are given (False: not wanted) -> (None, (26's single run,
+    the kernel launches of 26's mesh run)), or (the failure, None)."""
     try:
-        single = None
+        single = launches = None
         if phold_timed is not False:
-            single = _single_of(mesh_phold_phase(phold_timed, chain, tmp))
+            single, launches = mesh_phold_phase(phold_timed, chain, tmp)
+            single = _single_of(single)
         if gossip_single is not False:
             mesh_gossip_phase(gossip_single)
-        conn.send((None, single))
+        conn.send((None, (single, launches)))
     except BaseException as e:
         conn.send((f"{type(e).__name__}: {e}", None))
         raise
@@ -1993,7 +2285,9 @@ def _mesh_child(conn, phold_timed, chain, gossip_single, tmp):
 
 def mesh_gossip_phase(single):
     """27. examples/gossip-100k.xml as written on four shards of the card:
-    the plain gossip-100k run's stats and windows."""
+    the plain gossip-100k run's stats and windows. The plain run is run
+    again right after, in this process (`single_here_wall_s`): its wall
+    beside whatever else shares the card and the host then."""
     from shadow_tpu_torch.parallel.shard import make_mesh
     if single is None:          # --phases without gossip-100k
         _, single = run(gossip_scenario(100_000), gossip_cfg(100_000),
@@ -2001,16 +2295,20 @@ def mesh_gossip_phase(single):
     t0 = time.perf_counter()
     _, rep = run(gossip_scenario(100_000), gossip_cfg(100_000), "cuda",
                  mesh=make_mesh(MESH_SHARDS, "cuda"))
+    wall = time.perf_counter() - t0
     if rep.shards != MESH_SHARDS or not rep.device.startswith("cuda"):
         fail(f"mesh-gossip-100k: shards={rep.shards} on {rep.device}")
     _same_runs("mesh-gossip-100k", single, rep)
-    phase("mesh-gossip-100k", time.perf_counter() - t0,
+    _, here = run(gossip_scenario(100_000), gossip_cfg(100_000), "cuda")
+    _same_runs("mesh-gossip-100k (its plain run again)", single, here)
+    phase("mesh-gossip-100k", wall,
           hosts=rep.stats.shape[0], **rates(rep),
-          single_wall_s=round(single.wall_seconds, 3), stats_equal=True,
-          **shard_figures(rep))
+          single_wall_s=round(single.wall_seconds, 3),
+          single_here_wall_s=round(here.wall_seconds, 3), stats_equal=True,
+          **graph_of(rep, "mesh-gossip-100k"), **shard_figures(rep))
 
 
-def mesh_tcp_run(device, chain):
+def mesh_tcp_run(device, chain, graph=True):
     """mesh-tcp-gpu=cpu's run on `device`: four shards -> (stats, windows,
     summary, shard passes)."""
     from shadow_tpu_torch.engine.state import EngineConfig
@@ -2018,7 +2316,7 @@ def mesh_tcp_run(device, chain):
     scen = socks_scenario(0.02, 2, MESH_TCP_STOP_S)
     cfg = EngineConfig(num_hosts=scen.total_hosts(), **MESH_TCP_CAPS)
     _, rep = run(scen, cfg, device, mesh=make_mesh(MESH_SHARDS, device),
-                 digest=chain, digest_every=8)
+                 digest=chain, digest_every=8, graph=graph)
     return rep.stats, rep.windows, rep.summary(), rep.shard_passes
 
 
@@ -2035,18 +2333,25 @@ def _mesh_tcp_cpu_child(conn, chain):
 
 def mesh_tcp_phase(child, tmp):
     """28. a lossy 2-hop SOCKS shape on four shards with two-slot
-    buckets: bursts defer into ST_DEFER_A2A, and the card's mesh gives
-    the CPU mesh's stats, windows and digest chain."""
+    buckets: bursts defer into ST_DEFER_A2A, and the card's mesh on the
+    graph path gives the card's eager path's (graph=False) and the CPU
+    mesh's stats, windows, passes a shard and digest chain."""
     t0 = time.perf_counter()
     path = os.path.join(tmp, "mesh-tcp-cuda.jsonl")
     gst, gwin, s, ps = mesh_tcp_run("cuda", path)
+    graph_fields = graph_summary(s, "mesh-tcp-gpu=cpu")
+    epath = os.path.join(tmp, "mesh-tcp-eager.jsonl")
+    est, ewin, es, eps = mesh_tcp_run("cuda", epath, graph=False)
+    if (not (gst == est).all() or (gwin, ps) != (ewin, eps)
+            or _read(path) != _read(epath)):
+        fail("mesh-tcp-gpu=cpu: the card's graph and eager paths differ")
     (err, cpu), waited = child.result()
     if err:
         fail(f"mesh-tcp-gpu=cpu (cpu): {err}")
-    cst, cwin, cs, _ = cpu
-    if not (gst == cst).all() or gwin != cwin:
-        fail("mesh-tcp-gpu=cpu: stats or windows differ between cuda and "
-             "cpu")
+    cst, cwin, cs, cps = cpu
+    if not (gst == cst).all() or (gwin, ps) != (cwin, cps):
+        fail("mesh-tcp-gpu=cpu: stats, windows or passes differ between "
+             "cuda and cpu")
     if _read(path) != _read(os.path.join(tmp, "mesh-tcp-cpu.jsonl")):
         fail("mesh-tcp-gpu=cpu: digest chains differ between cuda and cpu")
     if not (s["defer_a2a"] > 0 and s["transfers_done"] and
@@ -2058,7 +2363,10 @@ def mesh_tcp_phase(child, tmp):
           defer_a2a=s["defer_a2a"], transfers=s["transfers_done"],
           retransmits=s["retransmits"], cuda_wall=round(s["wall_seconds"],
                                                         3),
-          cpu_wall=round(cs["wall_seconds"], 3), shard_passes=json.dumps(ps),
+          cpu_wall=round(cs["wall_seconds"], 3),
+          eager_wall=round(es["wall_seconds"], 3),
+          eager_host_reads_per_chunk=es["host_reads_per_chunk"],
+          shard_passes=json.dumps(ps), graph=graph_fields,
           chains_equal=True)
 
 

@@ -47,9 +47,11 @@ JSON line and exits without running. ``batch`` runs same-shape scenarios as lane
 either it builds once into ``build/kernels``), and ``--prewarm`` builds
 or loads it and captures the chunk's CUDA graph without running,
 printing one JSON line (the fleet's pre-warm child; on the CPU there is
-nothing to capture: ``"captured": false``). A run on cuda replays one
-captured graph a chunk; the summary's ``path`` says so (``eager`` and
-``path_reason`` for hosted apps, a mesh, ``--passcope`` or the CPU).
+nothing to capture: ``"captured": false``; with ``--workers N`` on one
+card it captures the sharded chunk). A run on cuda replays one
+captured graph a chunk, on a mesh of one card too; the summary's
+``path`` says so (``eager`` and ``path_reason`` for hosted apps, a mesh
+over several cards, ``--passcope`` or the CPU).
 """
 
 from __future__ import annotations

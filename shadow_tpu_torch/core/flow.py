@@ -8,7 +8,8 @@ the current flow (:func:`cur`), which has two implementations:
 
 - :class:`EagerFlow` reads each predicate on the host and runs Python's
   own ``if``/``while``: the plain loop, used on the CPU and on the eager
-  paths (hosted apps, a mesh, batch lanes, passcope);
+  paths (hosted apps, a mesh over several cards or processes, passcope,
+  ``graph=False``);
 - :class:`GraphFlow` records CUDA graph conditional nodes while the
   chunk is captured (``core.jitcache``): ``while_`` adds a WHILE node
   and ``if_`` an IF node, each set on the device from its predicate

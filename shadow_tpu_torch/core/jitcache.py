@@ -49,23 +49,49 @@ STATS = {"compiles": 0, "compile_wall_s": 0.0, "replays": 0,
 KEEP = 4
 
 
+def _fp(cfg) -> str:
+    from ..obs.ledger import ENGINE, fingerprint_of
+    return fingerprint_of(cfg, engine=ENGINE)
+
+
 def cache_scope(cfg, chunk: int) -> str:
     """The reference's scope string, ``run_windows.c<chunk>.<fp16>``
     (the fingerprint ``--shape-fingerprint`` prints)."""
-    from ..obs.ledger import ENGINE, fingerprint_of
-    return f"run_windows.c{int(chunk)}.{fingerprint_of(cfg, engine=ENGINE)}"
+    return f"run_windows.c{int(chunk)}.{_fp(cfg)}"
+
+
+def batch_scope(cfg, chunk: int, lanes: int) -> str:
+    """The reference's scope of the batched chunk,
+    ``run_windows_batch.c<chunk>.b<lanes>.<fp16>``."""
+    return f"run_windows_batch.c{int(chunk)}.b{int(lanes)}.{_fp(cfg)}"
+
+
+def sharded_scope(cfg, chunk: int, mesh) -> str:
+    """The reference's scope of the sharded chunk, which pins the mesh's
+    devices: ``run_windows_sharded.c<chunk>.s<shards>.d<ids>.<fp16>``
+    (`cfg` the padded global config)."""
+    devs = "-".join(str(d.index if d.index is not None else d.type)
+                    for d in mesh)
+    return (f"run_windows_sharded.c{int(chunk)}.s{mesh.size}.d{devs}"
+            f".{_fp(cfg)}")
 
 
 def leaf_sig(trees, skip=("stop_time",)) -> tuple:
     """(name, shape, dtype, device, data_ptr) of every tensor field of
-    the dataclasses `trees`, bar the names in `skip`."""
+    the dataclasses `trees` (and of the tensors of a dict field), bar
+    the names in `skip`."""
     out = []
     for i, tr in enumerate(trees):
         for f in dataclasses.fields(tr):
             v = getattr(tr, f.name)
-            if torch.is_tensor(v) and f.name not in skip:
-                out.append((i, f.name, tuple(v.shape), str(v.dtype),
-                            str(v.device), v.data_ptr()))
+            if f.name in skip:
+                continue
+            items = (sorted(v.items()) if isinstance(v, dict)
+                     else [("", v)])
+            for k, t in items:
+                if torch.is_tensor(t):
+                    out.append((i, f.name + k, tuple(t.shape),
+                                str(t.dtype), str(t.device), t.data_ptr()))
     return tuple(out)
 
 
@@ -78,22 +104,26 @@ class Graph:
     tensors it reads (`keep`, alive as long as it is)."""
 
     def __init__(self, graph, exec_, pool, keep, nodes: dict,
-                 pool_bytes: int, wall: float):
+                 pool_bytes: int, wall: float, device):
         self._graph, self._exec = graph, exec_
         self.pool, self.keep = pool, keep
         self.nodes, self.pool_bytes, self.wall = nodes, pool_bytes, wall
+        self.device = device
 
     def replay(self):
+        """Launch the graph on its card's current stream."""
         from . import kernels
-        kernels.check(kernels.lib().sf_launch(
-            self._exec, torch.cuda.current_stream().cuda_stream),
-            "graph launch")
+        with torch.cuda.device(self.device):
+            kernels.check(kernels.lib().sf_launch(
+                self._exec,
+                torch.cuda.current_stream(self.device).cuda_stream),
+                "graph launch")
         STATS["replays"] += 1
 
     def close(self):
         if self._exec is not None or self._graph is not None:
             from . import kernels
-            torch.cuda.synchronize()
+            torch.cuda.synchronize(self.device)
             kernels.check(kernels.lib().sf_destroy(self._graph, self._exec),
                           "graph destroy")
             self._graph = self._exec = None
@@ -154,7 +184,7 @@ def capture(fn, device, keep=()) -> Graph:
         gg = MT.REGISTRY.gauge("jitcache.compile_wall_s")
         gg.set(gg.v + wall)
     return Graph(g, x, pool, tuple(keep), dict(flow.nodes), pool_bytes,
-                 wall)
+                 wall, device)
 
 
 class ChunkCache:

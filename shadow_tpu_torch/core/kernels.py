@@ -5,18 +5,22 @@ interface (no PyTorch headers: seconds to build), kept on disk by
 ``serving.aotcache`` and loaded at first use (:func:`lib`). Nothing is
 built or loaded when this module is imported.
 
-Two kernels, each with its plain PyTorch version beside it and a count
-of launches (:data:`LAUNCHES`, one a launch, counted only where the
-wrapper launches):
+Three kernels, each with its plain PyTorch version beside it and a
+count of launches (:data:`LAUNCHES`, one a launch, counted only where
+the wrapper launches):
 
 - :func:`pass_flags` — the drain pass's dispatch bitmap and the pass
   loop's go-on flag (plain: :func:`pass_flags_plain`);
 - :func:`advance` — the window boundary's reductions and the window
-  scalars' update (plain: :func:`advance_plain`).
+  scalars' update (plain: :func:`advance_plain`);
+- :func:`advance_lanes` — ``advance`` over stacked scenario lanes, a
+  row of window scalars a lane, and the batch's go-on flags (plain:
+  :func:`advance_lanes_plain`).
 
 A wrapper runs the plain version only when its tensors lie on the CPU
 (or on the ``meta`` device, the tests' host-read guard); on a CUDA
-tensor it launches the kernel or raises. The JAX package has no Pallas
+tensor it launches the kernel or raises. It launches on its tensors'
+card and that card's current stream, whichever card is current. The JAX package has no Pallas
 kernel, so these replace none; they are what lets the window chunk run
 as one captured CUDA graph (``core.flow``, ``core.jitcache``).
 """
@@ -39,7 +43,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-cudart", "shared"]
 
 # wrapper launches: one a launch on the card, a captured launch included
-LAUNCHES = {"pass_flags": 0, "advance": 0}
+LAUNCHES = {"pass_flags": 0, "advance": 0, "advance_lanes": 0}
 
 # the window-scalar vector W (int64), csrc/flow.cu's W_* indices
 (W_WS, W_WE, W_I, W_PASSES, W_WEFF, W_RAN, W_OB0, W_CONT, W_STOP, W_JUMP,
@@ -64,6 +68,8 @@ _SIGS = {
     "sf_pass_flags": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT,
                       _VP, _U64],
     "sf_advance": [_VP, _VP, _VP, _VP, _INT, _VP, _INT, _U64],
+    "sf_advance_lanes": [_VP, _VP, _VP, _VP, _INT, _INT, _VP, _VP, _INT,
+                         _U64],
     "sf_exec_counts": [ctypes.POINTER(_U64), _INT],
     "sf_empty": [_VP, _INT, _INT],
 }
@@ -105,9 +111,9 @@ def executions(reset: bool = False) -> dict:
     runs its kernels many times for each launch recorded in
     :data:`LAUNCHES`); `reset` zeroes the counts after reading them.
     Synchronizes."""
-    out = (_U64 * 2)()
+    out = (_U64 * len(LAUNCHES))()
     check(lib().sf_exec_counts(out, int(reset)), "read execution counts")
-    return {"pass_flags": out[0], "advance": out[1]}
+    return dict(zip(LAUNCHES, out))
 
 
 def check(rc: int, what: str):
@@ -116,8 +122,10 @@ def check(rc: int, what: str):
         raise RuntimeError(f"{what} failed: CUDA error {rc}")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(t) -> int:
+    """The current stream of the card `t` lies on (not of the current
+    card)."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _on_card(*ts) -> bool:
@@ -173,11 +181,12 @@ def pass_flags(code, feat, n_codes: int, n_bits: int, null_code: int,
         _need(feat, torch.int32, "pass_flags feat")
     out = torch.empty(n_codes + n_bits + 1, dtype=torch.int32,
                       device=code.device)
-    check(lib().sf_pass_flags(
-        _stream(), code.data_ptr(),
-        None if feat is None else feat.data_ptr(), code.shape[0], n_codes,
-        n_bits, null_code, cont_mask, stop_mask, out.data_ptr(), handle),
-        "pass_flags launch")
+    with torch.cuda.device(code.device):
+        check(lib().sf_pass_flags(
+            _stream(code), code.data_ptr(),
+            None if feat is None else feat.data_ptr(), code.shape[0],
+            n_codes, n_bits, null_code, cont_mask, stop_mask,
+            out.data_ptr(), handle), "pass_flags launch")
     LAUNCHES["pass_flags"] += 1
     return out
 
@@ -224,8 +233,81 @@ def advance(eq_next, ob_next, ob_cnt, W, mode: int, handle: int = 0):
     _need(ob_next, torch.int64, "advance ob_next")
     _need(ob_cnt, torch.int32, "advance ob_cnt")
     _need(W, torch.int64, "advance W")
-    check(lib().sf_advance(_stream(), eq_next.data_ptr(), ob_next.data_ptr(),
-                           ob_cnt.data_ptr(), eq_next.shape[0], W.data_ptr(),
-                           mode, handle), "advance launch")
+    with torch.cuda.device(W.device):
+        check(lib().sf_advance(_stream(W), eq_next.data_ptr(),
+                               ob_next.data_ptr(), ob_cnt.data_ptr(),
+                               eq_next.shape[0], W.data_ptr(), mode,
+                               handle), "advance launch")
     LAUNCHES["advance"] += 1
+    return W
+
+
+# --- advance over stacked lanes ---------------------------------------------
+
+def advance_lanes_plain(eq_next, ob_next, ob_cnt, W, G, mode: int):
+    """:func:`advance_plain` on each of B stacked lanes: the [B * H]
+    rows, row r in lane r // H (H >= 1); `W` [B, W_LEN] int64, a row of
+    window scalars a lane, in place. ADV_OPEN opens every lane; ADV_SHIP
+    and ADV_STEP leave a lane whose W_CONT is 0 as it is (a frozen
+    lane). `G` ([W_LEN + 1] int64, the batch's row) gets G[W_CONT], the
+    OR of the lanes' go-on flags (ADV_OPEN, ADV_STEP), or G[W_EX],
+    whether some live lane ships (ADV_SHIP); G[W_LEN] is the kernel's
+    scratch."""
+    B = W.shape[0]
+    live = W[:, W_CONT] != 0
+    if mode == ADV_SHIP:
+        so = ob_cnt.view(B, -1).sum(1, dtype=torch.int64)
+        W[:, W_OB0] = torch.where(live, so, W[:, W_OB0])
+        W[:, W_EX] = torch.where(live, (so > 0).to(torch.int64),
+                                 W[:, W_EX])
+        G[W_EX] = (live & (W[:, W_EX] != 0)).any().to(torch.int64)
+        return W
+    mq = eq_next.view(B, -1).min(1).values
+    new = W.clone()
+    if mode == ADV_STEP:
+        so = ob_cnt.view(B, -1).sum(1, dtype=torch.int64)
+        progressed = (W[:, W_RAN] != 0) | (so < W[:, W_OB0])
+        nt = torch.where(progressed, torch.minimum(
+            mq, ob_next.view(B, -1).min(1).values), mq)
+        new[:, W_WS] = nt
+        new[:, W_WE] = torch.where(nt == SIMTIME_MAX, SIMTIME_MAX,
+                                   nt + W[:, W_JUMP])
+        new[:, W_I] += 1
+    else:
+        live = torch.ones_like(live)
+    ws = new[:, W_WS]
+    new[:, W_CONT] = ((new[:, W_I] < new[:, W_MAXW]) & (ws < new[:, W_STOP])
+                      & (ws < SIMTIME_MAX)).to(torch.int64)
+    weff = torch.minimum(new[:, W_WE], new[:, W_STOP])
+    new[:, W_WEFF] = weff
+    new[:, W_RAN] = (mq < weff).to(torch.int64)
+    W.copy_(torch.where(live[:, None], new, W))
+    G[W_CONT] = (W[:, W_CONT] != 0).any().to(torch.int64)
+    return W
+
+
+def advance_lanes(eq_next, ob_next, ob_cnt, W, G, mode: int,
+                  handle: int = 0):
+    """:func:`advance_lanes_plain` on the card; ADV_OPEN and ADV_STEP
+    set the conditional handle `handle` (the window loop's, when not 0)
+    to G[W_CONT]."""
+    if not _on_card(W):
+        return advance_lanes_plain(eq_next, ob_next, ob_cnt, W, G, mode)
+    _need(eq_next, torch.int64, "advance_lanes eq_next")
+    _need(ob_next, torch.int64, "advance_lanes ob_next")
+    _need(ob_cnt, torch.int32, "advance_lanes ob_cnt")
+    _need(W, torch.int64, "advance_lanes W")
+    _need(G, torch.int64, "advance_lanes G")
+    B = W.shape[0]
+    if W.dim() != 2 or W.shape[1] != W_LEN or G.numel() != W_LEN + 1 \
+            or eq_next.shape[0] % max(B, 1):
+        raise ValueError(f"advance_lanes: W {tuple(W.shape)} (want [B, "
+                         f"{W_LEN}]), G {tuple(G.shape)}, "
+                         f"{eq_next.shape[0]} rows")
+    with torch.cuda.device(W.device):
+        check(lib().sf_advance_lanes(
+            _stream(W), eq_next.data_ptr(), ob_next.data_ptr(),
+            ob_cnt.data_ptr(), B, eq_next.shape[0] // B, W.data_ptr(),
+            G.data_ptr(), mode, handle), "advance_lanes launch")
+    LAUNCHES["advance_lanes"] += 1
     return W

@@ -31,6 +31,13 @@
 //      anti-livelock rule, clamped to the stop time; the window counter;
 //      the next window's ran flag) and the window loop's handle. Plain
 //      version: core/kernels.py:advance_plain.
+//    - advance_lanes: advance over B stacked scenario lanes ([B * H] rows,
+//      row r in lane r / H; W is [B, W_LEN], a row a lane), each lane's
+//      boundary exactly as advance's for one lane, a lane whose go-on flag
+//      is 0 left as it is (jax's batched while_loop freezes a finished
+//      lane), and the batch's row G (the OR of the lanes' go-on flags,
+//      whether some live lane ships) with the window loop's handle set
+//      from it. Plain version: core/kernels.py:advance_lanes_plain.
 //    What bounds them: bytes, ~0.24 us and ~0.6 us at H = 100,000 on
 //    3.35 TB/s; in practice one graph node's launch (~1 us for an empty
 //    kernel in a graph) and a few dependent memory round trips, as both
@@ -80,14 +87,15 @@ enum { ADV_OPEN = 0, ADV_SHIP = 1, ADV_STEP = 2 };
 static cudaStream_t S(void *p) { return (cudaStream_t)p; }
 
 // executions of each kernel on the device (a captured chunk runs them
-// many times for each wrapper call): [0] pass_flags, [1] advance
-__device__ unsigned long long exec_count[2];
+// many times for each wrapper call): [0] pass_flags, [1] advance,
+// [2] advance_lanes
+__device__ unsigned long long exec_count[3];
 
 extern "C" int sf_exec_counts(unsigned long long *out, int reset) {
     cudaError_t e = cudaMemcpyFromSymbol(out, exec_count,
                                          sizeof(exec_count));
     if (e != cudaSuccess || !reset) return e;
-    unsigned long long zero[2] = {0, 0};
+    unsigned long long zero[3] = {0, 0, 0};
     return cudaMemcpyToSymbol(exec_count, zero, sizeof(zero));
 }
 
@@ -639,4 +647,152 @@ extern "C" int sf_advance(void *stream, const void *eq_next,
                              (const long long *)ob_next,
                              (const int32_t *)ob_cnt, H, (long long *)W, mode,
                              (cudaGraphConditionalHandle)h);
+}
+
+// --- advance over stacked lanes ---------------------------------------------
+
+// One block a lane (lane b = blockIdx.x, its rows [b * H, (b + 1) * H)):
+// the lane's reductions as advance_k's, by the same loads (the lane's
+// rows may start anywhere: Rows takes any alignment), then its thread 0
+// runs advance's scalar tail on the lane's row of W, unless the lane is
+// frozen (its W_CONT is 0 in ADV_SHIP and ADV_STEP; ADV_OPEN opens every
+// lane). The batch's row G is set by the last block to finish, found by
+// a ticket (G[W_LEN], an atomic counter the last block puts back to 0):
+// each block's thread 0 makes its lane's writes visible (__threadfence)
+// before it takes a ticket, and the last block reads every lane's flags
+// past L1 (__ldcg), where another lane's stale line could sit beside its
+// own row. G[W_CONT] is the OR of the lanes' go-on flags (ADV_OPEN,
+// ADV_STEP; it sets handle `h`), G[W_EX] whether some live lane ships
+// (ADV_SHIP). A ticket, not a cluster a lane or a second launch: one
+// launch, and nothing waits but the last block.
+//
+// What bounds it: bytes, as advance's (20 B a row at ADV_STEP); a block
+// a lane reads its lane alone, so one lane of H rows takes one SM's load
+// rate (B = 4 lanes of 4,096 rows: four SMs); simple first, as the
+// lanes are few and short on the batch's main path.
+__global__ void __launch_bounds__(THREADS)
+advance_lanes_k(const long long *__restrict__ eq_next,
+                const long long *__restrict__ ob_next,
+                const int32_t *__restrict__ ob_cnt, int B, int H,
+                long long *W, long long *G, int mode,
+                cudaGraphConditionalHandle h) {
+    __shared__ long long warps[WARPS][A_LEN];
+    __shared__ long long w[W_LEN];
+    __shared__ int last;
+    __shared__ unsigned flags[WARPS][2];
+    int b = blockIdx.x, t = threadIdx.x;
+    long long *Wb = W + (long long)b * W_LEN;
+    long long base = (long long)b * H;
+    long long wl = t < W_LEN ? Wb[t] : 0;
+    Rows<long long> re(eq_next + base, mode != ADV_SHIP ? H : 0, &MAX64),
+        ro(ob_next + base, mode == ADV_STEP ? H : 0, &MAX64);
+    Rows<int32_t> rk(ob_cnt + base, mode != ADV_OPEN ? H : 0, &ZERO32);
+    long long mq = re.at_head(t), mo = ro.at_head(t);
+    long long e1 = re.at_tail(t), o1 = ro.at_tail(t);
+    long long so = (long long)rk.at_head(t) + rk.at_tail(t);
+    mq = e1 < mq ? e1 : mq;
+    mo = o1 < mo ? o1 : mo;
+    int nv = re.nv > ro.nv ? re.nv : ro.nv;
+    nv = rk.nv > nv ? rk.nv : nv;
+    for (int i0 = t; i0 < nv; i0 += UNROLL * THREADS) {
+        longlong2 a[UNROLL], c2[UNROLL];
+        int4 c[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; u++) {
+            a[u] = re.vec(i0 + u * THREADS);
+            c2[u] = ro.vec(i0 + u * THREADS);
+            c[u] = rk.vec(i0 + u * THREADS);
+        }
+#pragma unroll
+        for (int u = 0; u < UNROLL; u++) {
+            long long x = a[u].x < a[u].y ? a[u].x : a[u].y;
+            long long y = c2[u].x < c2[u].y ? c2[u].x : c2[u].y;
+            mq = x < mq ? x : mq;
+            mo = y < mo ? y : mo;
+            so += (long long)c[u].x + c[u].y + c[u].z + c[u].w;
+        }
+    }
+    mq = warp_min(mq);
+    mo = warp_min(mo);
+    so = warp_sum(so);
+    int lane = t & 31, warp = t >> 5;
+    if (lane == 0) {
+        warps[warp][A_MQ] = mq;
+        warps[warp][A_MO] = mo;
+        warps[warp][A_SO] = so;
+    }
+    if (t < W_LEN) w[t] = wl;
+    __syncthreads();
+    if (warp == 0) {
+        bool in = lane < WARPS;
+        mq = warp_min(in ? warps[lane][A_MQ] : SIMTIME_MAX);
+        mo = warp_min(in ? warps[lane][A_MO] : SIMTIME_MAX);
+        so = warp_sum(in ? warps[lane][A_SO] : 0);
+        if (lane == 0) {
+            if (mode == ADV_OPEN || w[W_CONT]) {
+                if (mode == ADV_SHIP) {
+                    Wb[W_OB0] = so;
+                    Wb[W_EX] = so > 0;
+                } else {
+                    if (mode == ADV_STEP) {
+                        int progressed = w[W_RAN] || so < w[W_OB0];
+                        long long next =
+                            progressed ? (mo < mq ? mo : mq) : mq;
+                        Wb[W_WS] = w[W_WS] = next;
+                        Wb[W_WE] = w[W_WE] = next == SIMTIME_MAX
+                            ? SIMTIME_MAX : next + w[W_JUMP];
+                        Wb[W_I] = w[W_I] += 1;
+                    }
+                    open_window(Wb, w, mq, 0);
+                }
+            }
+            __threadfence();
+            unsigned long long ticket =
+                atomicAdd((unsigned long long *)&G[W_LEN], 1ull);
+            last = ticket == (unsigned long long)(B - 1);
+        }
+    }
+    __syncthreads();
+    if (!last) return;
+    // the last block: every lane's writes are visible
+    __threadfence();
+    unsigned cont = 0, ex = 0;
+    for (int k = t; k < B; k += THREADS) {
+        const long long *Wk = W + (long long)k * W_LEN;
+        unsigned c = __ldcg(Wk + W_CONT) != 0;
+        cont |= c;
+        ex |= c && __ldcg(Wk + W_EX) != 0;
+    }
+    cont = __reduce_or_sync(0xffffffffu, cont);
+    ex = __reduce_or_sync(0xffffffffu, ex);
+    if (lane == 0) {
+        flags[warp][0] = cont;
+        flags[warp][1] = ex;
+    }
+    __syncthreads();
+    if (t) return;
+    for (int k = 1; k < WARPS; k++) {
+        cont |= flags[k][0];
+        ex |= flags[k][1];
+    }
+    G[W_LEN] = 0;
+    atomicAdd(&exec_count[2], 1ull);
+    if (mode == ADV_SHIP) {
+        G[W_EX] = ex;
+        return;
+    }
+    G[W_CONT] = cont;
+    if (h) cudaGraphSetConditional(h, cont);
+}
+
+extern "C" int sf_advance_lanes(void *stream, const void *eq_next,
+                                const void *ob_next, const void *ob_cnt,
+                                int B, int H, void *W, void *G, int mode,
+                                unsigned long long h) {
+    if (B < 1 || H < 0) return cudaErrorInvalidValue;
+    advance_lanes_k<<<B, THREADS, 0, S(stream)>>>(
+        (const long long *)eq_next, (const long long *)ob_next,
+        (const int32_t *)ob_cnt, B, H, (long long *)W, (long long *)G, mode,
+        (cudaGraphConditionalHandle)h);
+    return cudaGetLastError();
 }

@@ -285,6 +285,34 @@ def auto_engine_config(scenario: Scenario, topo: Topology) -> EngineConfig:
                         incap=incap, txqcap=16)
 
 
+def chunk_path(device, graph: bool = True, hosted: bool = False,
+               mesh=None, passcope: bool = False, clock=None) -> tuple:
+    """("graph", None) when a run's chunks run as replays of one
+    captured CUDA graph — every modeled run on cuda: single-device, a
+    batch of lanes, or a mesh whose shards share one card in this
+    process — else ("eager", reason). The configuration decides, never
+    a caught error: a graph run whose capture or build fails raises.
+    ``graph=False`` asks for the eager loop on the card (the
+    graph=eager comparison)."""
+    from ..parallel import shard as SH
+    if device.type != "cuda":
+        return "eager", f"device {device.type}"
+    if hosted:
+        return "eager", "hosted apps (the CPU tier runs between windows)"
+    if mesh is not None and mesh.comm.multiprocess:
+        return "eager", ("a multi-process mesh (its collectives run "
+                         "between processes)")
+    if mesh is not None and not SH.one_device(mesh):
+        return "eager", "a mesh over several cards in one process"
+    if passcope:
+        return "eager", "passcope (its labels need eager launches)"
+    if clock is not None:
+        return "eager", "a per-phase clock"
+    if not graph:
+        return "eager", "graph=False"
+    return "graph", None
+
+
 class Simulation:
     """Build and run one scenario on one torch device (``cuda`` unless
     the caller names another)."""
@@ -510,28 +538,29 @@ class Simulation:
         self._ran = False
         self._pscope = None
         self._devices = None    # a mesh run's devices
+        self._warm_mesh = None  # (mesh, ShardedState, Shared): prewarm's
 
     def execution_path(self, mesh=None, passcope: bool = False,
                        clock=None, graph: bool = True) -> tuple:
-        """("graph", None) when the chunks run as replays of one captured
-        CUDA graph — every single-device modeled run on cuda — else
-        ("eager", reason). The configuration decides, never a caught
-        error: a graph run whose capture or build fails raises.
-        ``graph=False`` asks for the eager loop on the card (the
-        graph=eager comparison)."""
-        if self.device.type != "cuda":
-            return "eager", f"device {self.device.type}"
-        if self.hosting is not None:
-            return "eager", "hosted apps (the CPU tier runs between windows)"
-        if mesh is not None:
-            return "eager", "a mesh"
-        if passcope:
-            return "eager", "passcope (its labels need eager launches)"
-        if clock is not None:
-            return "eager", "a per-phase clock"
-        if not graph:
-            return "eager", "graph=False"
-        return "graph", None
+        """This run's :func:`chunk_path`."""
+        return chunk_path(self.device, graph, hosted=self.hosting is not None,
+                          mesh=mesh, passcope=passcope, clock=clock)
+
+    def _shard(self, mesh, hosts, hp, sh, resumed: bool = False):
+        """This run's state on `mesh` -> (ShardedState, the padded
+        Shared): stacked when every shard shares one device and no
+        hosted app runs; the one ``prewarm(mesh)`` built (whose graph it
+        captured) when run on the same mesh from the start."""
+        from ..parallel import shard as SH
+        warm, self._warm_mesh = self._warm_mesh, None
+        if warm is not None and warm[0] is mesh and not resumed:
+            return warm[1], warm[2]
+        hosts_p, hp_p, sh_p, cfg_p = self._pad_for_mesh(mesh.size, hosts,
+                                                        hp, sh)
+        ss = SH.device_put_sharded(
+            hosts_p, hp_p, sh_p, cfg_p, mesh,
+            stacked=SH.one_device(mesh) and self.hosting is None)
+        return ss, sh_p
 
     def prewarm(self, mesh=None, digest_every: int = 0) -> dict:
         """Build or load the kernel library and capture the chunk graph
@@ -541,10 +570,12 @@ class Simulation:
         chunk shrinks to 1 under hosted apps and to the digest cadence
         when `digest_every` > 0, as run() does. The graph goes into the
         process's memory tier (core.jitcache), keyed by this state's
-        tensors, so this Simulation's run() replays it; a graph cannot
-        outlive its process, so the disk tier (serving.aotcache) keeps
-        the library only. On an eager path (the CPU, hosted apps, a
-        mesh) nothing is captured.
+        tensors, so this Simulation's run() replays it; a `mesh` is the
+        sharded chunk (the state sharded now, which run() on the same
+        mesh takes over). A graph cannot outlive its process, so the
+        disk tier (serving.aotcache) keeps the library only. On an eager
+        path (the CPU, hosted apps, shards over several cards or
+        processes) nothing is captured.
 
         Returns {"fingerprint", "chunk", "shards", "cache_scope",
         "captured", "path"}."""
@@ -552,15 +583,24 @@ class Simulation:
         from ..obs.ledger import ENGINE, fingerprint_of
         chunk = self.effective_chunk(digest_every)
         path, why = self.execution_path(mesh)
+        if mesh is None:
+            scope = JC.cache_scope(self.cfg, chunk)
+        else:
+            scope = JC.sharded_scope(self._pad_cfg(mesh.size), chunk, mesh)
         out = {"fingerprint": fingerprint_of(self.cfg, engine=ENGINE),
                "chunk": chunk,
                "shards": 1 if mesh is None else mesh.size,
-               "cache_scope": JC.cache_scope(self.cfg, chunk),
-               "captured": False, "path": path}
-        if path == "graph":
+               "cache_scope": scope, "captured": False, "path": path}
+        if path == "graph" and mesh is None:
             from .window import chunk_graph
             chunk_graph(self.hosts, self.hp, self.sh, self.cfg, chunk,
                         make_plan(self.cfg, self.hp, self.sh))
+            out["captured"] = True
+        elif path == "graph":
+            from ..parallel import shard as SH
+            ss, sh_p = self._shard(mesh, self.hosts, self.hp, self.sh)
+            SH.sharded_graph(ss, chunk, SH.sharded_plan(ss))
+            self._warm_mesh = (mesh, ss, sh_p)
             out["captured"] = True
         elif why:
             out["reason"] = why
@@ -640,9 +680,10 @@ class Simulation:
         enables it the same way (empty: ``passcope_trace``). Profiling
         is observation only. ``SimReport.occupancy`` is always set.
 
-        On cuda, a single-device modeled run replays one captured CUDA
-        graph a chunk (``execution_path``; ``graph=False`` keeps the
-        eager loop), with the same results bit for bit;
+        On cuda, a modeled run — single-device, or on a mesh whose
+        shards share one card in this process — replays one captured
+        CUDA graph a chunk (``execution_path``; ``graph=False`` keeps
+        the eager loop), with the same results bit for bit;
         ``SimReport.execution`` says which path ran and why."""
         if self._ran:
             raise RuntimeError("Simulation objects are single-use")
@@ -851,10 +892,8 @@ class Simulation:
         ss = None
         lane_rows = H           # the rows one drain pass steps
         if mesh is not None:
-            hosts_p, hp_p, sh, cfg_p = self._pad_for_mesh(mesh.size, st,
-                                                          hp, sh)
-            ss = SH.device_put_sharded(hosts_p, hp_p, sh, cfg_p, mesh)
-            del hosts_p
+            ss, sh = self._shard(mesh, st, hp, sh, bool(resume_from))
+            mplan = SH.sharded_plan(ss) if graph else None
             st = self.hosts = None
             lane_rows = ss.lcfg.num_hosts
             self._devices = SH.mesh_local_devices(mesh)
@@ -969,11 +1008,18 @@ class Simulation:
                 ws, we, n, npass = run_windows(st, hp, sh_seg, ws, we, cfg,
                                                chunk, clock=clock, plan=plan)
             else:
-                ws, we, n, sp = SH.run_windows_sharded(
-                    ss, ws, we, chunk, clock=clock,
-                    stop=int(sh_seg.stop_time))
-                sp = [v[0] for v in mesh.comm.scalars(
-                    [torch.tensor([p], device=d) for p, d in zip(sp, mesh)])]
+                if graph:
+                    ws, we, n, sp = SH.run_windows_sharded_graph(
+                        ss, ws, we, chunk, mplan,
+                        stop=int(sh_seg.stop_time))
+                else:
+                    ws, we, n, sp = SH.run_windows_sharded(
+                        ss, ws, we, chunk, clock=clock,
+                        stop=int(sh_seg.stop_time))
+                if multiproc:
+                    sp = [v[0] for v in mesh.comm.scalars(
+                        [torch.tensor([p], device=d)
+                         for p, d in zip(sp, mesh)])]
                 shard_passes = [a + b for a, b in zip(shard_passes, sp)]
                 npass = sum(sp)
             total_windows += n
@@ -1225,6 +1271,14 @@ class Simulation:
                                         report.events), MT.REGISTRY)
         return report
 
+    def _pad_cfg(self, n_shards: int) -> EngineConfig:
+        """The config with its host count padded to a multiple of
+        `n_shards`."""
+        H = self.cfg.num_hosts
+        Hp = -(-H // n_shards) * n_shards
+        return (self.cfg if Hp == H
+                else dataclasses.replace(self.cfg, num_hosts=Hp))
+
     def _pad_for_mesh(self, n_shards: int, hosts, hp, sh):
         """Pad the host dimension to a multiple of the shard count with
         inert hosts (empty queues, no app) -> (hosts, hp, sh, cfg).
@@ -1232,10 +1286,10 @@ class Simulation:
         to the unpadded run's; they are cut off again before stats,
         digests and checkpoints."""
         H = self.cfg.num_hosts
-        Hp = -(-H // n_shards) * n_shards
+        cfg = self._pad_cfg(n_shards)
+        Hp = cfg.num_hosts
         if Hp == H:
             return hosts, hp, sh, self.cfg
-        cfg = dataclasses.replace(self.cfg, num_hosts=Hp)
         pad, dev = Hp - H, self.device
         fresh = alloc_hosts(dataclasses.replace(cfg, num_hosts=pad), dev)
         hosts = Hosts(**{f.name: torch.cat([getattr(hosts, f.name),

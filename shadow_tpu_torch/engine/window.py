@@ -28,11 +28,15 @@ pass flag (``core.kernels.pass_flags``), the exchange under ``when`` on
 the outboxes' packet count, and the window boundaries in
 ``core.kernels.advance``, with the window scalars on the device
 (``W``). Under the eager flow (:func:`run_windows`: the CPU, hosted
-apps, a mesh, batch lanes, passcope) each predicate is read on the
-host, one read a pass for the flags and one for the due-now NIC-TX
-chain, and two a window; on cuda a single-device run captures the
-chunk once as a CUDA graph of conditional nodes and replays it
-(:func:`run_windows_graph`), reading the host once a chunk. A value one
+apps, passcope, ``graph=False``) each predicate is read on the host,
+one read a pass for the flags and one for the due-now NIC-TX chain,
+and two a window; on cuda a run captures the chunk once as a CUDA
+graph of conditional nodes and replays it (:func:`run_windows_graph`),
+reading the host once a chunk. Stacked scenario lanes have their own
+form of the chunk (:func:`run_chunk_lanes`, a row of window scalars a
+lane, ``core.kernels.advance_lanes``), eager
+(:func:`run_windows_batch`) or captured (:func:`run_windows_batch_graph`);
+the mesh's is ``parallel.shard.run_chunk_sharded``. A value one
 conditional body hands to code after it is written in place.
 
 Not ported, because the reference holds them bit-identical to the dense
@@ -237,10 +241,11 @@ def step_all_hosts(st, hp, sh, wend, cfg: EngineConfig, plan: Plan,
     handle), the pass with nothing to run changing nothing.
 
     `wend` is an int, a device scalar, or a [rows] tensor holding each
-    row's own window end (stacked lanes); `lane_passes` ([B] int64),
-    when given, counts the passes in which each lane had a row to step;
-    `W` (the window scalars), when given, counts the pass in
-    W[W_PASSES]."""
+    row's own window end (stacked lanes); `lane_passes` ([B] int64, a
+    lane's or a shard's block of rows each), when given, counts the
+    passes in which each block had a row to step; `W` (the window
+    scalars, or stacked lanes' batch row), when given, counts the pass
+    in W[W_PASSES]."""
     slot, t = equeue.q_min(st)
     ready = t < wend
     stepped = ready
@@ -561,9 +566,9 @@ def exchange_lanes(st, hp, sh, cfg: EngineConfig, active):
     """``exchange`` over stacked lanes (``sh`` a LaneShared): each
     packet routes through its lane's tables, rolls loss with its lane's
     seed and lands at row lane*H + DST; a packet's words stay
-    lane-local. The outbox of a lane that is not `active` ([B] bool)
-    is left as it is, as jax's batched while_loop leaves a finished
-    lane's carry."""
+    lane-local. The outbox of a lane that is not `active` ([B], non-zero
+    where the lane goes on) is left as it is, as jax's batched
+    while_loop leaves a finished lane's carry."""
     B, H = sh.lanes, sh.hosts
     O = st.ob_time.shape[1]
     N = B * H * O
@@ -573,7 +578,7 @@ def exchange_lanes(st, hp, sh, cfg: EngineConfig, active):
     stimes = st.ob_time.reshape(N)
     ar_o = torch.arange(O, device=dev)
     live = (ar_o[None, :] < st.ob_cnt[:, None]).reshape(N)
-    on = active.repeat_interleave(H * O)
+    on = (active != 0).repeat_interleave(H * O)
     valid = live & on
 
     lane = torch.arange(N, device=dev) // (H * O)
@@ -683,9 +688,14 @@ def run_windows(st, hp, sh, wstart: int, wend: int, cfg: EngineConfig,
     W = window_scalars(wstart, wend, int(sh.stop_time), int(sh.min_jump),
                        max_windows).to(st.eq_next.device)
     run_chunk(st, hp, sh, cfg, plan, W, clock)
-    FL.STATS["host_reads"] += 1
-    ws, we, i, passes = W[:K.W_PASSES + 1].tolist()
+    ws, we, i, passes = read_scalars(W[:K.W_PASSES + 1])
     return ws, we, i, passes
+
+
+def read_scalars(buf) -> list:
+    """A chunk's one host read: its scalars, as a list."""
+    FL.STATS["host_reads"] += 1
+    return buf.tolist()
 
 
 def prepare_capture(device, cfg: EngineConfig):
@@ -699,24 +709,42 @@ def prepare_capture(device, cfg: EngineConfig):
         netscope.bounds(device)
 
 
-def chunk_graph(st, hp, sh, cfg: EngineConfig, chunk: int, plan: Plan):
-    """The captured chunk for this state and plan (``core.jitcache``
-    memory tier), captured on a miss without running it."""
+def captured_chunk(sig, device, cfg: EngineConfig, n: int, body):
+    """The captured chunk for the signature `sig` (``core.jitcache``
+    memory tier), captured on a miss without running it: ``body(buf)``
+    under inference mode, `buf` the chunk's scalars (`n` int64 values on
+    `device`, the graph's ``buf``)."""
     from ..core import jitcache as JC
-    dev = st.eq_next.device
-    sig = JC.signature(JC.cache_scope(cfg, chunk), plan, (st, hp, sh))
 
     def build():
-        prepare_capture(dev, cfg)
-        W = torch.zeros(K.W_LEN, dtype=torch.int64, device=dev)
+        prepare_capture(device, cfg)
+        buf = torch.zeros(n, dtype=torch.int64, device=device)
 
-        def body():
+        def run():
             with torch.inference_mode():
-                run_chunk(st, hp, sh, cfg, plan, W)
-        g = JC.capture(body, dev, keep=(W,))
-        g.W = W
+                body(buf)
+        g = JC.capture(run, device, keep=(buf,))
+        g.buf = buf
         return g
     return JC.CHUNKS.warm(sig, build)
+
+
+def replay_chunk(g, scalars) -> list:
+    """One replay of a captured chunk: `scalars` (on the CPU) copied
+    into its buffer, the graph run, the buffer read once."""
+    g.buf.copy_(scalars)
+    g.replay()
+    return read_scalars(g.buf)
+
+
+def chunk_graph(st, hp, sh, cfg: EngineConfig, chunk: int, plan: Plan):
+    """The captured chunk for this state and plan, scope
+    ``run_windows.c<chunk>.<fp>``."""
+    from ..core import jitcache as JC
+    return captured_chunk(
+        JC.signature(JC.cache_scope(cfg, chunk), plan, (st, hp, sh)),
+        st.eq_next.device, cfg, K.W_LEN,
+        lambda W: run_chunk(st, hp, sh, cfg, plan, W))
 
 
 def run_windows_graph(st, hp, sh, wstart: int, wend: int,
@@ -727,65 +755,122 @@ def run_windows_graph(st, hp, sh, wstart: int, wend: int,
     the chunk on the device, and the host reads W once at the end.
     `stop` overrides ``sh.stop_time`` (a fault segment's end)."""
     g = chunk_graph(st, hp, sh, cfg, max_windows, plan)
-    g.W.copy_(window_scalars(wstart, wend,
-                             int(sh.stop_time) if stop is None else stop,
-                             int(sh.min_jump), max_windows))
-    g.replay()
-    FL.STATS["host_reads"] += 1
-    ws, we, i, passes = g.W[:K.W_PASSES + 1].tolist()
+    ws, we, i, passes = replay_chunk(g, window_scalars(
+        wstart, wend, int(sh.stop_time) if stop is None else stop,
+        int(sh.min_jump), max_windows))[:K.W_PASSES + 1]
     return ws, we, i, passes
+
+
+def lane_scalars(ws, we, stop, jump, max_windows: int) -> torch.Tensor:
+    """The batched chunk's window scalars and the batch's row, on the
+    CPU: one int64 vector of (B + 1) * W_LEN + 1, a :func:`window_scalars`
+    row a lane (from the lists `ws`, `we`, `stop`, `jump`), then the
+    batch's row G and its ticket (zero)."""
+    return torch.cat([window_scalars(*lane, max_windows)
+                      for lane in zip(ws, we, stop, jump)]
+                     + [torch.zeros(K.W_LEN + 1, dtype=torch.int64)])
+
+
+def lane_views(buf, B: int):
+    """(W [B, W_LEN], G [W_LEN + 1]) views of a :func:`lane_scalars`
+    vector."""
+    return buf[:B * K.W_LEN].view(B, K.W_LEN), buf[B * K.W_LEN:]
+
+
+def run_chunk_lanes(st, hp, sh, cfg: EngineConfig, plan: Plan, buf, wend):
+    """:func:`run_chunk` over B lanes stacked along the row axis (``sh``
+    a LaneShared), written against the current flow: a ``while_`` over
+    windows while some lane goes on, the drain's ``while_`` over passes,
+    the exchange under ``when`` some live lane ships, and each lane's
+    window boundary in ``core.kernels.advance_lanes``. `buf` holds the
+    window scalars, a row a lane, and the batch's row (:func:`lane_views`);
+    `wend` ([B * H] int64) is each row's window end, written in place
+    every window: the lane's W_WEFF, or 0 where the lane is frozen (its
+    chunk or run has ended), so its rows pop nothing, as jax's batched
+    while_loop freezes a finished lane; a frozen lane's outbox is left
+    alone. Each lane counts its passes (the passes in which it had a row
+    to step, which equal its run alone's) in W[:, W_PASSES], the batch
+    its stacked passes in G[W_PASSES]."""
+    B, H = sh.lanes, sh.hosts
+    W, G = lane_views(buf, B)
+    live = W[:, K.W_CONT]
+    K.advance_lanes(st.eq_next, st.ob_next, st.ob_cnt, W, G, K.ADV_OPEN)
+
+    def window():
+        with scope("advance"):
+            wend.view(B, H).copy_(torch.where(
+                live != 0, W[:, K.W_WEFF], 0)[:, None].expand(B, H))
+        with scope("drain"):
+            drain_window(st, hp, sh, wend, cfg, plan, W[:, K.W_PASSES], G)
+        with scope("cap_peaks"):
+            update_cap_peaks(st)
+        with scope("exchange"):
+            K.advance_lanes(st.eq_next, st.ob_next, st.ob_cnt, W, G,
+                            K.ADV_SHIP)
+
+            @FL.when(G[K.W_EX])     # some live lane ships
+            def _():
+                exchange_lanes(st, hp, sh, cfg, live)
+        with scope("cap_peaks"):
+            update_cap_peaks(st)
+        with scope("advance"):
+            K.advance_lanes(st.eq_next, st.ob_next, st.ob_cnt, W, G,
+                            K.ADV_STEP, handle=FL.loop_handle())
+        return FL.result(G[K.W_CONT])
+    FL.cur().while_(G[K.W_CONT], window)
+
+
+def _lanes_split(v, B: int):
+    """A batched chunk's scalars, read -> (ws, we, windows, passes:
+    lists a lane; the stacked passes)."""
+    rows = [v[b * K.W_LEN:(b + 1) * K.W_LEN] for b in range(B)]
+    return ([r[K.W_WS] for r in rows], [r[K.W_WE] for r in rows],
+            [r[K.W_I] for r in rows], [r[K.W_PASSES] for r in rows],
+            v[B * K.W_LEN + K.W_PASSES])
+
+
+def _lane_consts(sh):
+    return sh.stop_time.tolist(), sh.min_jump.tolist()
 
 
 @torch.inference_mode()
 def run_windows_batch(st, hp, sh, ws, we, cfg: EngineConfig,
-                      max_windows: int, lane_passes):
+                      max_windows: int, plan: Plan = None):
     """``run_windows`` over B lanes stacked along the row axis (``sh`` a
-    LaneShared; `ws`, `we` [B] int64 tensors, updated in place).
+    LaneShared; `ws`, `we` lists a lane): :func:`run_chunk_lanes` under
+    the eager flow. Each lane runs up to `max_windows` windows of its
+    own, exactly the windows its individual run would. Returns (ws',
+    we', windows run, passes: lists a lane; the stacked passes)."""
+    plan = plan or make_plan(cfg, hp, sh)
+    dev = st.eq_next.device
+    buf = lane_scalars(ws, we, *_lane_consts(sh), max_windows).to(dev)
+    wend = torch.zeros_like(st.eq_next)
+    run_chunk_lanes(st, hp, sh, cfg, plan, buf, wend)
+    return _lanes_split(read_scalars(buf), sh.lanes)
 
-    Each lane runs up to `max_windows` windows of its own, exactly the
-    windows its individual run would: a lane whose chunk or run has
-    ended is frozen (its rows' window end is 0, so they pop nothing,
-    and its outbox is left alone), as jax's batched while_loop freezes
-    a finished lane. One drain pass steps every lane, and the advance
-    takes each lane's values from one [B, H] reduction, so a window
-    costs two host syncs whatever B is. `lane_passes` ([B] int64)
-    counts each lane's passes. Returns (windows run [B] tensor, drain
-    passes)."""
-    B, H = sh.lanes, sh.hosts
-    i = torch.zeros(B, dtype=torch.int64, device=ws.device)
-    passes = 0
-    plan = make_plan(cfg, hp, sh)
-    while True:
-        with scope("advance"):
-            active = (i < max_windows) & (ws < sh.stop_time) \
-                & (ws < SIMTIME_MAX)
-            if not bool(active.any()):          # host sync
-                break
-            we_eff = torch.minimum(we, sh.stop_time)
-            ran = st.eq_next.view(B, H).min(1).values < we_eff
-            wend = torch.where(active, we_eff, 0).repeat_interleave(H)
-        with scope("drain"):
-            passes += drain_window(st, hp, sh, wend, cfg, plan,
-                                   lane_passes)
-        with scope("cap_peaks"):
-            update_cap_peaks(st)
-        with scope("exchange"):
-            ob0 = st.ob_cnt.view(B, H).sum(1) * active
-            if bool(ob0.any()):                 # host sync
-                exchange_lanes(st, hp, sh, cfg, active)
-        with scope("cap_peaks"):
-            update_cap_peaks(st)
-        with scope("advance"):
-            progressed = ran | (st.ob_cnt.view(B, H).sum(1) < ob0)
-            nq = st.eq_next.view(B, H).min(1).values
-            nt = torch.where(progressed, torch.minimum(
-                nq, st.ob_next.view(B, H).min(1).values), nq)
-            we2 = torch.where(nt == SIMTIME_MAX, SIMTIME_MAX,
-                              nt + sh.min_jump)
-            ws.copy_(torch.where(active, nt, ws))
-            we.copy_(torch.where(active, we2, we))
-            i += active
-    return i, passes
+
+def batch_graph(st, hp, sh, cfg: EngineConfig, chunk: int, plan: Plan):
+    """The captured batched chunk for this stacked state and plan, scope
+    ``run_windows_batch.c<chunk>.b<lanes>.<fp>`` (its rows' window ends
+    a tensor of the graph's pool)."""
+    from ..core import jitcache as JC
+    return captured_chunk(
+        JC.signature(JC.batch_scope(cfg, chunk, sh.lanes), plan,
+                     (st, hp, sh)),
+        st.eq_next.device, cfg, (sh.lanes + 1) * K.W_LEN + 1,
+        lambda buf: run_chunk_lanes(st, hp, sh, cfg, plan, buf,
+                                    torch.zeros_like(st.eq_next)))
+
+
+def run_windows_batch_graph(st, hp, sh, ws, we, cfg: EngineConfig,
+                            max_windows: int, plan: Plan):
+    """:func:`run_windows_batch` as one replay of the batched chunk's
+    captured CUDA graph: the lanes' window scalars are copied in, the
+    graph runs every window of the chunk on the device, and the host
+    reads the scalars once at the end."""
+    g = batch_graph(st, hp, sh, cfg, max_windows, plan)
+    return _lanes_split(replay_chunk(g, lane_scalars(
+        ws, we, *_lane_consts(sh), max_windows)), sh.lanes)
 
 
 # --- Determinism canonicalization -------------------------------------------

@@ -35,6 +35,21 @@ The collectives are a small interface with two implementations:
 one device or several) and ``parallel.dist.Distributed``
 (``torch.distributed``, several shards per process allowed). The
 exchange and the window loop are written once, against it.
+
+The window loop (:func:`run_chunk_sharded`) is also written once
+against the current ``core.flow``, as the single chunk is. When every
+shard lives in this process on one device (:func:`one_device`: the CPU,
+or one card) and no hosted app runs, the shards are row views of one
+stacked state (``ShardedState.stacked``): one drain steps every
+shard's rows, each shard counting on the device the passes in which it
+had a row to step (its own drain's passes), and one
+``core.kernels.advance`` over all rows is the global minimum and sum.
+On a card that chunk is captured as one CUDA graph and replayed with
+one host read a chunk (:func:`run_windows_sharded_graph`, the
+counterpart of the reference's ``run_windows_sharded_aot``). Shards on
+several cards or processes, or with hosted apps, keep tensors of their
+own and run eager: each drains alone, and the advance joins each
+shard's partial minima and sum on the host (``comm.scalars``).
 """
 
 from __future__ import annotations
@@ -45,10 +60,13 @@ from dataclasses import fields
 
 import torch
 
+from ..core import flow as FL
+from ..core import kernels as K
 from ..core.simtime import SIMTIME_MAX
 from ..engine.state import EngineConfig, Hosts, Shared
-from ..engine.window import (_deliver_dense, drain_window, make_plan, route,
-                             settle, update_cap_peaks)
+from ..engine.window import (_deliver_dense, captured_chunk, drain_window,
+                             make_plan, read_scalars, replay_chunk, route,
+                             settle, update_cap_peaks, window_scalars)
 from ..obs.passcope import scope
 
 
@@ -109,6 +127,13 @@ def make_mesh(n: int, device=None) -> Mesh:
     return Mesh([dev] * n)
 
 
+def one_device(mesh) -> bool:
+    """Every shard of the mesh lives in this process, on one device: the
+    shards can be row views of one stacked state."""
+    return (not mesh.comm.multiprocess
+            and len(mesh_local_devices(mesh)) == 1)
+
+
 def mesh_local_devices(mesh) -> list:
     """This process's distinct devices of the mesh, in shard order: what
     the memory watermark samples (one card holding four shards counts
@@ -125,7 +150,9 @@ class ShardedState:
     """The simulation state of this process's shards. `cfg` is the
     global config (its host count padded to the mesh), `lcfg` one
     shard's; `hp_all` the whole padded HostParams on the first shard's
-    device, for the CPU tier of hosted runs."""
+    device, for the CPU tier of hosted runs. `stacked`, when set, is
+    the whole padded (Hosts, HostParams) on the mesh's one device, of
+    whose row blocks the shards' tensors are views."""
     mesh: Mesh
     cfg: EngineConfig
     lcfg: EngineConfig
@@ -133,6 +160,7 @@ class ShardedState:
     hp: list
     sh: list
     hp_all: object
+    stacked: tuple = None
 
     def lo(self, k: int) -> int:
         """The first global row of local shard `k`."""
@@ -162,10 +190,12 @@ def put_shared(ss: ShardedState, sh: Shared):
     ss.sh = [copies[dev] for dev in ss.mesh]
 
 
-def device_put_sharded(hosts, hp, sh, cfg: EngineConfig,
-                       mesh: Mesh) -> ShardedState:
+def device_put_sharded(hosts, hp, sh, cfg: EngineConfig, mesh: Mesh,
+                       stacked: bool = False) -> ShardedState:
     """Split whole `hosts`/`hp` (host count a multiple of the mesh size)
-    into this process's row blocks on their devices and replicate `sh`."""
+    into this process's row blocks on their devices and replicate `sh`;
+    with `stacked` (a :func:`one_device` mesh) the blocks are row views
+    of one copy of the whole state."""
     if cfg.num_hosts % mesh.size:
         raise ValueError(f"num_hosts={cfg.num_hosts} not divisible by "
                          f"{mesh.size} shards (Simulation pads "
@@ -175,8 +205,16 @@ def device_put_sharded(hosts, hp, sh, cfg: EngineConfig,
     ss = ShardedState(mesh=mesh, cfg=cfg, lcfg=lcfg, hosts=[], hp=[],
                       sh=[], hp_all=_rows(hp, 0, cfg.num_hosts,
                                           mesh[0], copy=False))
+    if stacked:
+        if not one_device(mesh):
+            raise ValueError("a stacked state needs every shard in this "
+                             "process on one device")
+        ss.stacked = (_rows(hosts, 0, cfg.num_hosts, mesh[0], copy=True),
+                      ss.hp_all)
+        hosts, hp = ss.stacked
     for k, dev in enumerate(mesh):
-        ss.hosts.append(_rows(hosts, ss.lo(k), Hl, dev, copy=True))
+        ss.hosts.append(_rows(hosts, ss.lo(k), Hl, dev,
+                              copy=not stacked))
         ss.hp.append(_rows(hp, ss.lo(k), Hl, dev, copy=False))
     put_shared(ss, sh)
     return ss
@@ -326,60 +364,140 @@ def exchange_sharded(ss: ShardedState, seed: int):
                dest[k][0], dest[k][1])
 
 
-@torch.inference_mode()
-def run_windows_sharded(ss: ShardedState, wstart: int, wend: int,
-                        max_windows: int, clock=None, stop: int = None):
-    """``engine.window.run_windows`` over the mesh, in place.
+def _advance(ss: ShardedState, W, mode: int, handle: int = 0):
+    """The global window boundary (``core.kernels.advance``) over every
+    shard's rows: on a stacked state one kernel over all rows; else each
+    shard's partial minima and sum, joined on the host (``comm.scalars``,
+    a collective on a multi-process mesh; the eager flow only)."""
+    if ss.stacked is not None:
+        st = ss.stacked[0]
+        K.advance(st.eq_next, st.ob_next, st.ob_cnt, W, mode, handle)
+        return
+    vals = scalars(ss, lambda st: torch.stack([
+        st.eq_next.min(), st.ob_next.min(),
+        st.ob_cnt.sum(dtype=torch.int64)]))
+    FL.STATS["host_reads"] += 1
+    mq, mo, so = zip(*vals)
+    K.advance(torch.tensor([min(mq)]), torch.tensor([min(mo)]),
+              torch.tensor([sum(so)], dtype=torch.int32), W, mode)
 
-    The drain is shard-local: each shard runs only the passes its own
-    rows need (and a hosted shard's wake-ring pause is its own). The
-    advance is global: the minimum over shards of the next event and of
-    the next carried arrival, with the anti-livelock rule on the summed
-    outbox counts before and after the exchange. `stop` overrides the
-    Shared stop time (a fault segment's bound). Returns (wstart',
-    wend', windows_run, passes): `passes` holds each local shard's
-    drain passes, the imbalance signal."""
-    tick = clock or (lambda _label: None)
-    sh0 = ss.sh[0]
-    stop = int(sh0.stop_time) if stop is None else int(stop)
-    min_jump, seed = int(sh0.min_jump), int(sh0.seed32)
-    passes = [0] * len(ss.hosts)
-    plans = [make_plan(ss.lcfg, hp, sh) for hp, sh in zip(ss.hp, ss.sh)]
-    ws, we, i, nq = wstart, wend, 0, None
-    while i < max_windows and ws < stop and ws < SIMTIME_MAX:
-        we_eff = min(we, stop)
+
+def run_chunk_sharded(ss: ShardedState, W, passes, plan, tick=None):
+    """The chunk over the mesh: up to W[W_MAXW] windows from [W[W_WS],
+    W[W_WE]), never past W[W_STOP], written against the current flow
+    (``core.flow``), as ``engine.window.run_chunk``. The drain is
+    shard-local: each shard's passes are counted in `passes` (on a
+    stacked state a [shards] device tensor, the passes in which the
+    shard had a row to step; else a list, each shard's own drain). The
+    advance is global (:func:`_advance`): the minimum over shards of
+    the next event and of the next carried arrival, with the
+    anti-livelock rule on the summed outbox counts before and after the
+    exchange (``exchange_sharded``, under ``when`` on that count).
+    `plan` is the stacked state's ``Plan``, or one a shard. `tick`, when
+    given (eager only), is called with "drain", "exchange" and
+    "advance" as each phase of a window ends."""
+    tick = tick or (lambda _label: None)
+    seed = (plan if ss.stacked is not None else plan[0]).seed
+    peaks = ss.hosts if ss.stacked is None else ss.stacked[:1]
+    _advance(ss, W, K.ADV_OPEN)
+
+    def window():
         with scope("drain"):
-            if nq is None:
-                nq = min(v[0] for v in scalars(
-                    ss, lambda st: st.eq_next.min().view(1)))
-            ran = nq < we_eff
-            for k, st in enumerate(ss.hosts):
-                passes[k] += drain_window(st, ss.hp[k], ss.sh[k], we_eff,
-                                          ss.lcfg, plans[k])
+            if ss.stacked is not None:
+                st, hp = ss.stacked
+                drain_window(st, hp, ss.sh[0], W[K.W_WEFF], ss.cfg, plan,
+                             passes)
+            else:
+                we = int(W[K.W_WEFF])
+                for k, st in enumerate(ss.hosts):
+                    passes[k] += drain_window(st, ss.hp[k], ss.sh[k], we,
+                                              ss.lcfg, plan[k])
         tick("drain")
         with scope("cap_peaks"):
-            for st in ss.hosts:
+            for st in peaks:
                 update_cap_peaks(st)
         with scope("exchange.sharded"):
-            ob0 = sum(v[0] for v in scalars(
-                ss, lambda st: st.ob_cnt.sum().view(1)))
-            if ob0:     # an empty exchange is the identity
+            _advance(ss, W, K.ADV_SHIP)
+
+            @FL.when(W[K.W_EX])     # an empty exchange is the identity
+            def _():
                 exchange_sharded(ss, seed)
         with scope("cap_peaks"):
-            for st in ss.hosts:
+            for st in peaks:
                 update_cap_peaks(st)
         tick("exchange")
         with scope("advance"):
-            vals = scalars(ss, lambda st: torch.stack([
-                st.ob_cnt.sum().to(torch.int64), st.eq_next.min(),
-                torch.minimum(st.eq_next.min(), st.ob_next.min())]))
-            nq = min(v[1] for v in vals)
             # anti-livelock: a window that executed nothing and shipped
-            # nothing re-opens at the earliest queue event
-            progressed = ran or sum(v[0] for v in vals) < ob0
-            nt = min(v[2] for v in vals) if progressed else nq
-            ws, we = nt, (SIMTIME_MAX if nt == SIMTIME_MAX
-                          else nt + min_jump)
+            # nothing re-opens at the earliest queue event (in advance)
+            _advance(ss, W, K.ADV_STEP, handle=FL.loop_handle())
         tick("advance")
-        i += 1
-    return ws, we, i, passes
+        return FL.result(W[K.W_CONT])
+    FL.cur().while_(W[K.W_CONT], window)
+
+
+def sharded_plan(ss: ShardedState):
+    """The chunk's ``Plan``: the stacked state's, or one a shard."""
+    if ss.stacked is not None:
+        return make_plan(ss.cfg, ss.stacked[1], ss.sh[0])
+    return [make_plan(ss.lcfg, hp, sh) for hp, sh in zip(ss.hp, ss.sh)]
+
+
+def _scalars_in(ss: ShardedState, wstart, wend, max_windows, stop):
+    """The chunk's window scalars, then a zero pass count a shard (one
+    int64 vector on the CPU: W is its first W_LEN values)."""
+    sh0 = ss.sh[0]
+    W = window_scalars(wstart, wend,
+                       int(sh0.stop_time) if stop is None else int(stop),
+                       int(sh0.min_jump), max_windows)
+    return torch.cat([W, torch.zeros(len(ss.hosts), dtype=torch.int64)])
+
+
+def _split(v):
+    """A sharded chunk's scalars, read -> (wstart', wend', windows run,
+    passes a shard)."""
+    return v[K.W_WS], v[K.W_WE], v[K.W_I], v[K.W_LEN:]
+
+
+@torch.inference_mode()
+def run_windows_sharded(ss: ShardedState, wstart: int, wend: int,
+                        max_windows: int, clock=None, stop: int = None):
+    """``engine.window.run_windows`` over the mesh, in place:
+    :func:`run_chunk_sharded` under the eager flow. `stop` overrides the
+    Shared stop time (a fault segment's bound). Returns (wstart',
+    wend', windows_run, passes): `passes` holds each local shard's
+    drain passes, the imbalance signal."""
+    buf = _scalars_in(ss, wstart, wend, max_windows, stop)
+    plan = sharded_plan(ss)
+    if ss.stacked is None:
+        passes = [0] * len(ss.hosts)
+        run_chunk_sharded(ss, buf[:K.W_LEN], passes, plan, clock)
+        return _split(read_scalars(buf))[:3] + (passes,)
+    buf = buf.to(ss.device)
+    run_chunk_sharded(ss, buf[:K.W_LEN], buf[K.W_LEN:], plan, clock)
+    return _split(read_scalars(buf))
+
+
+def sharded_graph(ss: ShardedState, chunk: int, plan):
+    """The captured sharded chunk of a stacked state on a card, scope
+    ``run_windows_sharded.c<chunk>.s<shards>.d<device ids>.<fp>``."""
+    from ..core import jitcache as JC
+    if ss.stacked is None:
+        raise ValueError("only a stacked mesh (every shard on one card, "
+                         "in one process) runs as a captured chunk")
+    return captured_chunk(
+        JC.signature(JC.sharded_scope(ss.cfg, chunk, ss.mesh), plan,
+                     ss.stacked + (ss.sh[0],)),
+        ss.device, ss.cfg, K.W_LEN + len(ss.hosts),
+        lambda buf: run_chunk_sharded(ss, buf[:K.W_LEN], buf[K.W_LEN:],
+                                      plan))
+
+
+def run_windows_sharded_graph(ss: ShardedState, wstart: int, wend: int,
+                              max_windows: int, plan, stop: int = None):
+    """:func:`run_windows_sharded` as one replay of the sharded chunk's
+    captured CUDA graph: the window scalars are copied in, the graph
+    runs every window of the chunk on the card, and the host reads the
+    scalars and the shards' passes once at the end."""
+    g = sharded_graph(ss, max_windows, plan)
+    return _split(replay_chunk(g, _scalars_in(ss, wstart, wend,
+                                              max_windows, stop)))

@@ -3,10 +3,14 @@
 Counterpart of ``shadow_tpu/serving/batch.py``. A parameter sweep's
 scenarios usually share one EngineConfig and differ only in Shared
 values (seed, stop time, latency tables). The reference runs them as
-one vmapped program; here their state stacks along the row axis (row
-b*H + h is host h of lane b, ``engine.state.stack_rows``) and
-``engine.window.run_windows_batch`` drains every lane in one pass per
-step, so B lanes share one run's launches and host syncs.
+one vmapped program ("one compile, N cheap executions"); here their
+state stacks along the row axis (row b*H + h is host h of lane b,
+``engine.state.stack_rows``) and the batched chunk
+(``engine.window.run_chunk_lanes``) drains every lane in one pass per
+step, so B lanes share one run's launches. On cuda the chunk is one
+captured CUDA graph, replayed a chunk with one host read
+(``run_windows_batch_graph``); on the CPU, or with ``graph=False``, it
+runs under the eager flow (``run_windows_batch``).
 
 Each lane's window trajectory is its individual run's: a lane whose
 chunk or run has ended is frozen, as jax's batched while_loop freezes a
@@ -82,7 +86,7 @@ def check_same_shape(sims) -> None:
 
 
 def run_batch(sims, names=None, digest_paths=None, digest_every=0,
-              netscope_paths=None, verbose=False):
+              netscope_paths=None, verbose=False, graph: bool = True):
     """Run B same-shape Simulations as lanes of one state.
 
     `digest_paths` (optional, len B) gives each lane its own digest
@@ -95,15 +99,22 @@ def run_batch(sims, names=None, digest_paths=None, digest_every=0,
     SimReport per lane; wall_seconds is the whole batch's wall,
     ``passes`` the lane's own (the passes in which it had a row to
     step, which equal its run alone's) and ``batch`` the lane count and
-    the stacked passes."""
+    the stacked passes. On cuda the chunks replay one captured CUDA
+    graph (``graph=False`` keeps the eager loop, the graph=eager
+    comparison); ``execution`` on each report says which path ran, its
+    captures, replays and host reads a chunk."""
     import torch
 
+    from ..core import flow as FL
+    from ..core import jitcache as JC
     from ..core.simtime import SIMTIME_MAX
     from ..engine import defs
-    from ..engine.sim import SimReport
+    from ..engine.sim import SimReport, chunk_path
     from ..engine.state import lane_rows, stack_rows, stack_shared
-    from ..engine.window import run_windows_batch
+    from ..engine.window import (make_plan, run_windows_batch,
+                                 run_windows_batch_graph)
     from ..obs import digest as DG
+    from ..serving import aotcache as AC
     from ..obs import memscope as MS
     from ..obs import netscope as NSC
     from ..obs import passcope as PC
@@ -157,8 +168,17 @@ def run_batch(sims, names=None, digest_paths=None, digest_every=0,
     for s in sims:
         s.hosts = None          # the lanes' rows now live in `st`
     ws = st.eq_next.view(B, H).min(1).values
-    we = torch.where(ws == SIMTIME_MAX, SIMTIME_MAX, ws + sh.min_jump)
-    lane_passes = torch.zeros(B, dtype=torch.int64, device=dev)
+    ws, we = ws.tolist(), torch.where(ws == SIMTIME_MAX, SIMTIME_MAX,
+                                      ws + sh.min_jump).tolist()
+    lane_passes = [0] * B
+    path, path_why = chunk_path(dev, graph)
+    plan = make_plan(cfg, hp, sh)
+    step = (run_windows_batch_graph if path == "graph"
+            else run_windows_batch)
+    ex0 = (FL.STATS["host_reads"], JC.STATS["compiles"],
+           JC.STATS["compile_wall_s"], JC.STATS["replays"],
+           AC.STATS["builds"], AC.STATS["disk_hits"])
+    n_chunks = 0
     stops = sh.stop_time.tolist()
     total_windows = [0] * B
     done = [False] * B
@@ -179,11 +199,13 @@ def run_batch(sims, names=None, digest_paths=None, digest_every=0,
     passes = 0
     try:
         while not all(done):
-            n, npass = run_windows_batch(st, hp, sh, ws, we, cfg, chunk,
-                                         lane_passes)
+            ws, we, n_l, lp, npass = step(st, hp, sh, ws, we, cfg, chunk,
+                                          plan)
             passes += npass
+            n_chunks += 1
+            lane_passes = [a + b for a, b in zip(lane_passes, lp)]
             wm.sample()
-            n_l, w_l = n.tolist(), ws.tolist()
+            w_l = ws
             if hb_path is not None:
                 try:
                     with open(hb_path, "w") as f:
@@ -224,8 +246,19 @@ def run_batch(sims, names=None, digest_paths=None, digest_every=0,
 
     wm.sample()
     mem = wm.snapshot()
-    lp = lane_passes.tolist()
-    w_l = ws.tolist()
+    lp, w_l = lane_passes, ws
+    g = JC.last_graph() if path == "graph" else None
+    execution = {
+        "path": path, "reason": path_why, "chunks": n_chunks,
+        "captures": JC.STATS["compiles"] - ex0[1],
+        "capture_wall_s": JC.STATS["compile_wall_s"] - ex0[2],
+        "replays": JC.STATS["replays"] - ex0[3],
+        "pool_bytes": g.pool_bytes if g else 0,
+        "nodes": dict(g.nodes) if g else {},
+        "host_reads_per_chunk": ((FL.STATS["host_reads"] - ex0[0])
+                                 / n_chunks if n_chunks else 0.0),
+        "native_builds": AC.STATS["builds"] - ex0[4],
+        "disk_hits": AC.STATS["disk_hits"] - ex0[5]}
     reports = []
     for i, s in enumerate(sims):
         lane = lane_rows(st, i, H)
@@ -255,7 +288,7 @@ def run_batch(sims, names=None, digest_paths=None, digest_every=0,
             sim_time_ns=lane_now(i, w_l[i]), wall_seconds=wall,
             windows=total_windows[i], capacity=capacity,
             device=str(dev), passes=lp[i], memory=memory,
-            network=network, occupancy=occ,
+            network=network, occupancy=occ, execution=dict(execution),
             batch={"lanes": B, "stacked_passes": passes}))
     return reports
 
@@ -306,7 +339,7 @@ def main(argv=None) -> int:
                         "(implies --netscope)")
     p.add_argument("--aot-cache", default=None, metavar="DIR",
                    help="keep the native kernel library in DIR "
-                        "(serving.aotcache); the lanes run eager")
+                        "(serving.aotcache)")
     p.add_argument("--workers", type=int, default=0, metavar="N",
                    help="refused: " + NO_MESH)
     p.add_argument("--perf", nargs="?", const="", default=None,

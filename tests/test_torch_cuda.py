@@ -10,6 +10,7 @@ that has only PyTorch:
 The random batched rows defined here also feed tests/test_torch_units.py.
 """
 
+import itertools
 import os
 
 import numpy as np
@@ -418,3 +419,189 @@ def test_flow_kernels_equal_plain(cuda_device):
             assert torch.equal(W.cpu(), K.advance_plain(
                 *map(t, rows_np), W0.clone(), mode))
     K.LAUNCHES.update(launches)
+
+
+@pytest.mark.cuda
+def test_advance_lanes_equals_plain(cuda_device):
+    """advance_lanes (``csrc/flow.cu``) equals advance_lanes_plain bit
+    for bit on B = 1, 2, 4 and 7 lanes of 1 to 25,001 rows (4,096 and
+    25,000 among them, batch-phold-4096x4's and gossip-100k's lanes),
+    random and empty queues, each contiguous and on a view one element
+    in, about a third of the lanes frozen, every mode; then 20
+    executions in one captured graph, each with its own rows and
+    scalars, replayed three times: a ticket or a flag left dirty from
+    one execution to the next would show."""
+    from shadow_tpu_torch.core import kernels as K
+    from torch_kernels_np import lane_scalars_np, window_rows
+    dev = cuda_device
+    launches = dict(K.LAUNCHES)
+
+    def plain(rows_np, Ws, mode):
+        W = torch.tensor(Ws, dtype=torch.int64)
+        G = torch.zeros(K.W_LEN + 1, dtype=torch.int64)
+        K.advance_lanes_plain(*map(t, rows_np), W, G, mode)
+        return W, G
+
+    for B in (1, 2, 4, 7):
+        for H in (1, 3, 1025, 4096, 4097, 25_000, 25_001):
+            for off, kind in itertools.product((0, 1),
+                                               ("random", "empty")):
+                rows_np = window_rows(B * H, kind, seed=B * H + off)
+                rows = [_on_card(a, dev, off) for a in rows_np]
+                for seed in range(2):
+                    Ws = lane_scalars_np(B, H, seed)
+                    for mode in (K.ADV_OPEN, K.ADV_SHIP, K.ADV_STEP):
+                        W = torch.tensor(Ws, dtype=torch.int64).to(dev)
+                        G = torch.zeros(K.W_LEN + 1, dtype=torch.int64,
+                                        device=dev)
+                        K.advance_lanes(*rows, W, G, mode)
+                        want = plain(rows_np, Ws, mode)
+                        assert torch.equal(W.cpu(), want[0]), (B, H, off)
+                        assert torch.equal(G.cpu(), want[1]), (B, H, off)
+    cases = []
+    for i in range(20):
+        B, mode = (1, 2, 4, 7)[i % 4], i % 3
+        H = (3, 1025, 4096, 4097, 25_000)[i % 5]
+        rows_np = window_rows(B * H, "random", seed=200 + i)
+        Ws = lane_scalars_np(B, H, i)
+        cases.append((rows_np, Ws, mode, [_on_card(a, dev, i % 2)
+                                          for a in rows_np],
+                      torch.zeros(B, K.W_LEN, dtype=torch.int64,
+                                  device=dev),
+                      torch.zeros(K.W_LEN + 1, dtype=torch.int64,
+                                  device=dev)))
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _, _, mode, rows, W, G in cases:
+            K.advance_lanes(*rows, W, G, mode)
+    for _ in range(3):
+        for _, Ws, _, _, W, G in cases:
+            W.copy_(torch.tensor(Ws, dtype=torch.int64))
+            G.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        for rows_np, Ws, mode, _, W, G in cases:
+            want = plain(rows_np, Ws, mode)
+            assert torch.equal(W.cpu(), want[0])
+            assert torch.equal(G.cpu(), want[1])
+    K.LAUNCHES.update(launches)
+
+
+def _lossy_phold(n, seed, stop_s):
+    """`n` phold hosts on one 25 ms self-loop with 5% loss."""
+    topo = """<graphml xmlns="http://graphml.graphdrawing.org/xmlns">
+  <key attr.name="latency" attr.type="double" for="edge" id="d7"/>
+  <key attr.name="packetloss" attr.type="double" for="edge" id="d9"/>
+  <graph edgedefault="undirected"><node id="poi"/>
+    <edge source="poi" target="poi"><data key="d7">25.0</data>
+      <data key="d9">0.05</data></edge></graph></graphml>"""
+    return Scenario(stop_time=stop_s * 10**9, seed=seed,
+                    topology_graphml=topo,
+                    hosts=[HostSpec(id="n", quantity=n, processes=[
+                        ProcessSpec(plugin="phold", start_time=10**9,
+                                    arguments="port=9000 mean=150ms "
+                                              "init=2")])])
+
+
+def _phold_cfg(n):
+    return EngineConfig(num_hosts=n, qcap=16, scap=4, obcap=8, incap=16,
+                        chunk_windows=16)
+
+
+def _chain(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+@pytest.mark.cuda
+def test_batch_lanes_graph_equals_eager_and_cpu(cuda_device, tmp_path):
+    """Three lossy phold-16 lanes, the second stopping at 2 s (frozen
+    from then on), through ``serving.batch.run_batch`` on the card's
+    graph path (one captured graph a chunk, one host read a chunk), on
+    its eager path (``graph=False``) and on the CPU: each lane's digest
+    chain, stats, windows and passes equal on all three."""
+    from shadow_tpu_torch.serving.batch import run_batch
+    stops = {1: 4, 2: 2, 3: 4}
+    out = {}
+    for tag, dev, graph in (("graph", cuda_device, True),
+                            ("eager", cuda_device, False),
+                            ("cpu", "cpu", True)):
+        sims = [Simulation(_lossy_phold(16, sd, stop), device=dev,
+                           engine_cfg=_phold_cfg(16))
+                for sd, stop in stops.items()]
+        paths = [str(tmp_path / f"{tag}{sd}.jsonl") for sd in stops]
+        reps = run_batch(sims, digest_paths=paths, digest_every=4,
+                         graph=graph)
+        out[tag] = (reps, [_chain(p) for p in paths])
+    ex = out["graph"][0][0].execution
+    assert ex["path"] == "graph" and ex["host_reads_per_chunk"] == 1.0
+    assert ex["replays"] == ex["chunks"] and ex["captures"] == 1
+    assert out["eager"][0][0].execution["reason"] == "graph=False"
+    assert out["cpu"][0][0].execution["reason"] == "device cpu"
+    for tag in ("eager", "cpu"):
+        assert out[tag][1] == out["graph"][1], tag
+        for a, b in zip(out[tag][0], out["graph"][0]):
+            assert np.array_equal(a.stats, b.stats), tag
+            assert (a.windows, a.passes, a.batch) == (b.windows, b.passes,
+                                                      b.batch), tag
+    assert out["graph"][0][0].summary()["drop_net"] > 0
+
+
+@pytest.mark.cuda
+def test_one_card_mesh_graph_equals_eager(cuda_device, tmp_path):
+    """Lossy phold-13 on eight shards of one card (three padding rows,
+    the last shard all padding):
+    after ``Simulation.prewarm(mesh=...)`` the run replays the captured
+    sharded chunk (no capture of its own, one host read a chunk), and
+    gives the eager path's (``graph=False``) and the single run's stats,
+    windows, digest chain and the eager path's passes a shard."""
+    from shadow_tpu_torch.parallel.shard import make_mesh
+    runs = {}
+    for tag in ("graph", "eager", "single"):
+        sim = Simulation(_lossy_phold(13, 1, 4), device=cuda_device,
+                         engine_cfg=_phold_cfg(13))
+        mesh = None if tag == "single" else make_mesh(8, "cuda:0")
+        chain = str(tmp_path / f"{tag}.jsonl")
+        if tag == "graph":
+            info = sim.prewarm(mesh=mesh, digest_every=4)
+            assert info["captured"] and info["path"] == "graph"
+            assert info["cache_scope"].startswith(
+                "run_windows_sharded.c4.s8.d0-0-0-0-0-0-0-0.")
+        rep = sim.run(mesh=mesh, digest=chain, digest_every=4,
+                      graph=tag != "eager")
+        runs[tag] = (rep, _chain(chain))
+    g, e, s = (runs[k][0] for k in ("graph", "eager", "single"))
+    assert g.execution["path"] == "graph" and g.execution["captures"] == 0
+    assert g.execution["host_reads_per_chunk"] == 1.0
+    assert e.execution["path"] == "eager"
+    assert runs["graph"][1] == runs["eager"][1] == runs["single"][1]
+    for r in (e, s):
+        assert np.array_equal(g.stats, r.stats) and g.windows == r.windows
+    assert g.shard_passes == e.shard_passes and g.shard_passes[-1] == 0
+
+
+@pytest.mark.cuda
+def test_two_card_mesh_in_one_process(cuda_device, tmp_path):
+    """Four shards over two cards in one process (shard i on cuda:(i %
+    2)) run eager, every kernel on its shard's own card, and give the
+    single run's stats, windows and chain; a run on cuda:1 while cuda:0
+    is current gives them too (the wrappers launch on their tensors'
+    card)."""
+    from shadow_tpu_torch.parallel.shard import make_mesh
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    runs = []
+    for dev, mesh, graph in (("cuda:0", None, True),
+                             ("cuda", make_mesh(4, "cuda"), True),
+                             ("cuda:1", None, False)):
+        chain = str(tmp_path / f"{len(runs)}.jsonl")
+        rep = Simulation(_lossy_phold(13, 1, 4), device=dev,
+                         engine_cfg=_phold_cfg(13)).run(
+            mesh=mesh, digest=chain, digest_every=4, graph=graph)
+        runs.append((rep, _chain(chain)))
+    assert runs[1][0].execution["reason"] == (
+        "a mesh over several cards in one process")
+    for rep, chain in runs[1:]:
+        assert np.array_equal(rep.stats, runs[0][0].stats)
+        assert rep.windows == runs[0][0].windows and chain == runs[0][1]

@@ -12,7 +12,8 @@
   ``meta`` device under ``core.flow.TraceFlow`` (every body once, as a
   CUDA graph capture records it) and under a TorchFunctionMode that
   raises on any read of a tensor's value on the host, which shows on
-  the CPU that the chunk can be captured. The guard is checked live on
+  the CPU that the chunk can be captured (the batched and the sharded
+  chunk: ``test_torch_graph_guards.py``). The guard is checked live on
   the eager flow's reads. The kernels' plain versions are held in
   ``test_torch_kernels.py``.
 
@@ -111,10 +112,13 @@ class NoHostRead(TorchFunctionMode):
 
 
 def _meta(tree):
+    def meta(v):
+        if isinstance(v, dict):
+            return {k: meta(t) for k, t in v.items()}
+        return v.to("meta") if torch.is_tensor(v) else v
     return dataclasses.replace(tree, **{
-        f.name: getattr(tree, f.name).to("meta")
-        for f in dataclasses.fields(tree)
-        if torch.is_tensor(getattr(tree, f.name))})
+        f.name: meta(getattr(tree, f.name))
+        for f in dataclasses.fields(tree)})
 
 
 def _trace_chunk(sim):

@@ -1,7 +1,8 @@
 """The chunk kernels' plain versions (``shadow_tpu_torch/core/kernels.py``:
-``pass_flags_plain``, ``advance_plain``) against the numpy restatements of
-the bookkeeping they replace (``torch_kernels_np.py``), at the row counts
-the kernels are held at on the card.
+``pass_flags_plain``, ``advance_plain``, ``advance_lanes_plain``) against
+the numpy restatements of the bookkeeping they replace
+(``torch_kernels_np.py``), at the row counts the kernels are held at on
+the card; and the wrappers' launches on their tensors' card.
 
 The cases are the kernels' edges: idle rows, codes at 0 and at
 ``n_codes - 1``, codes outside the range (which the plain version
@@ -22,7 +23,8 @@ from shadow_tpu_torch.engine import window as WN
 from shadow_tpu_torch.engine.defs import EV_NULL, N_EVENT_KINDS
 from shadow_tpu_torch.engine.window import _N_CODES
 
-from torch_kernels_np import (EDGE_ROWS, advance_np, flag_cases, flag_rows,
+from torch_kernels_np import (EDGE_ROWS, advance_lanes_np, advance_np,
+                              flag_cases, flag_rows, lane_scalars_np,
                               pass_flags_np, window_rows, window_scalars_np)
 from torch_threads import one_torch_thread_everywhere  # noqa: F401
 
@@ -49,7 +51,8 @@ def test_pass_flags_plain_matches_the_bitmap(H, rows):
             assert want[-1] == 0 and want[EV_NULL] == 1
         if rows == "ends":
             assert want[0] == 1 and want[_N_CODES - 1] == int(H > 1)
-    assert K.LAUNCHES == {"pass_flags": 0, "advance": 0}
+    assert K.LAUNCHES == {"pass_flags": 0, "advance": 0,
+                          "advance_lanes": 0}
 
 
 @pytest.mark.parametrize("H", (1, 1025, 100_003))
@@ -85,7 +88,8 @@ def test_advance_plain_matches_the_eager_advance(H, queues):
         got = advance_np(eq, ob, cnt, W, K.ADV_STEP)
         assert got[K.W_WS] == got[K.W_WE] == np.iinfo(np.int64).max
         assert got[K.W_CONT] == 0
-    assert K.LAUNCHES == {"pass_flags": 0, "advance": 0}
+    assert K.LAUNCHES == {"pass_flags": 0, "advance": 0,
+                          "advance_lanes": 0}
 
 
 @pytest.mark.parametrize("H,p_null,p_bit", ((1, 0.5, 0.3), (64, 0.9, 0.05),
@@ -108,7 +112,8 @@ def test_pass_flags_plain_matches_the_drain_mix(H, p_null, p_bit):
         assert got.dtype == torch.int32
         assert got.tolist() == pass_flags_np(code, f, n_codes, nb, EV_NULL,
                                              cm, sm)
-    assert K.LAUNCHES == {"pass_flags": 0, "advance": 0}
+    assert K.LAUNCHES == {"pass_flags": 0, "advance": 0,
+                          "advance_lanes": 0}
 
 
 @pytest.mark.parametrize("H", (1, 7, 500))
@@ -137,3 +142,104 @@ def test_advance_plain_matches_random_window_scalars(H):
                             torch.tensor(W, dtype=torch.int64), mode)
             assert got.tolist() == advance_np(eq, ob, cnt, W, mode), (
                 trial, mode)
+
+
+@pytest.mark.parametrize("queues", ["random", "empty", "outboxes"])
+@pytest.mark.parametrize("B", (1, 2, 4, 7))
+def test_advance_lanes_plain_matches_each_lane_alone(B, queues):
+    """Every mode on B stacked lanes (1 to 4,097 rows a lane), about a
+    third of them frozen: each live lane's row equals ``advance_np`` on
+    its own rows, a frozen lane's row is unchanged, and the batch's row
+    holds the OR of the go-on flags or of the live lanes' ship flags;
+    one lane equals ``advance_plain``."""
+    for H in (1, 3, 1025, 4097):
+        eq, ob, cnt = window_rows(B * H, queues, seed=B * H)
+        for seed in range(3):
+            Ws = lane_scalars_np(B, H, seed)
+            for mode in (K.ADV_OPEN, K.ADV_SHIP, K.ADV_STEP):
+                W = torch.tensor(Ws, dtype=torch.int64)
+                G = torch.zeros(K.W_LEN + 1, dtype=torch.int64)
+                K.advance_lanes(_tensor(eq), _tensor(ob), _tensor(cnt), W,
+                                G, mode)
+                want, flag = advance_lanes_np(eq, ob, cnt, Ws, mode)
+                assert W.tolist() == want, (H, seed, mode)
+                i = K.W_EX if mode == K.ADV_SHIP else K.W_CONT
+                assert G.tolist() == [flag if j == i else 0
+                                      for j in range(K.W_LEN + 1)]
+                if B == 1 and Ws[0][K.W_CONT]:
+                    one = K.advance(_tensor(eq), _tensor(ob), _tensor(cnt),
+                                    torch.tensor(Ws[0]), mode)
+                    assert W[0].tolist() == one.tolist()
+    assert K.LAUNCHES == {"pass_flags": 0, "advance": 0,
+                          "advance_lanes": 0}
+
+
+class _OnCard:
+    """What a wrapper reads of a tensor, on a named card."""
+
+    def __init__(self, t, device):
+        self.t, self.device = t, torch.device(device)
+        self.dtype, self.shape = t.dtype, t.shape
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return 0
+
+    def dim(self):
+        return self.t.dim()
+
+    def numel(self):
+        return self.t.numel()
+
+
+def test_wrappers_launch_on_their_tensors_card(monkeypatch):
+    """Each kernel wrapper asks for the current stream of its tensors'
+    card (cuda:1 here, cuda:0 being current) and launches inside
+    ``torch.cuda.device`` of that card, so a kernel never runs on
+    another card's stream or context."""
+    import contextlib
+    import types
+    current, log = ["cuda:0"], []
+
+    @contextlib.contextmanager
+    def device(d):
+        outer, current[0] = current[0], str(torch.device(d))
+        try:
+            yield
+        finally:
+            current[0] = outer
+
+    def stream(device=None):
+        log.append(("stream", str(device)))
+        return types.SimpleNamespace(cuda_stream=11)
+
+    class Lib:
+        def __getattr__(self, name):
+            def launch(s, *args):
+                log.append((name, current[0], s))
+                return 0
+            return launch
+
+    empty = torch.empty
+    monkeypatch.setattr(K, "lib", Lib)
+    monkeypatch.setattr(K, "LAUNCHES", dict.fromkeys(K.LAUNCHES, 0))
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_stream", stream)
+    monkeypatch.setattr(torch, "empty", lambda *a, device=None, **kw:
+                        empty(*a, **kw))
+    eq, ob, cnt = (_OnCard(torch.from_numpy(a), "cuda:1")
+                   for a in window_rows(8, "random", seed=1))
+    code = _OnCard(torch.zeros(8, dtype=torch.int32), "cuda:1")
+    K.pass_flags(code, None, _N_CODES, 0, EV_NULL)
+    K.advance(eq, ob, cnt, _OnCard(torch.zeros(K.W_LEN, dtype=torch.int64),
+                                   "cuda:1"), K.ADV_OPEN)
+    K.advance_lanes(eq, ob, cnt, _OnCard(
+        torch.zeros(2, K.W_LEN, dtype=torch.int64), "cuda:1"), _OnCard(
+        torch.zeros(K.W_LEN + 1, dtype=torch.int64), "cuda:1"), K.ADV_OPEN)
+    assert log == [("stream", "cuda:1"), ("sf_pass_flags", "cuda:1", 11),
+                   ("stream", "cuda:1"), ("sf_advance", "cuda:1", 11),
+                   ("stream", "cuda:1"), ("sf_advance_lanes", "cuda:1", 11)]
+    assert K.LAUNCHES == {"pass_flags": 1, "advance": 1,
+                          "advance_lanes": 1}

@@ -1,6 +1,6 @@
 """numpy restatements of the chunk kernels' functions
-(``shadow_tpu_torch/core/kernels.py``: pass_flags, advance) and the
-inputs the tests hold them on.
+(``shadow_tpu_torch/core/kernels.py``: pass_flags, advance,
+advance_lanes) and the inputs the tests hold them on.
 
 The restatements are the bookkeeping the kernels replace, as the eager
 loop computed it on the host. Shared by the CPU tests
@@ -56,6 +56,38 @@ def advance_np(eq_next, ob_next, ob_cnt, W, mode):
     W[K.W_WEFF] = min(W[K.W_WE], W[K.W_STOP])
     W[K.W_RAN] = int(mq < W[K.W_WEFF])
     return W
+
+
+def advance_lanes_np(eq_next, ob_next, ob_cnt, Ws, mode):
+    """Each lane's boundary as the eager batch loop computed it: lane b
+    (rows [b*H, (b+1)*H)) takes ``advance_np`` unless it is frozen (its
+    W_CONT is 0, ADV_SHIP and ADV_STEP only) -> (the lanes' W lists,
+    the batch's flag: some lane goes on (ADV_OPEN, ADV_STEP) or some
+    live lane ships (ADV_SHIP))."""
+    B = len(Ws)
+    H = len(eq_next) // B
+    out = []
+    for b, W in enumerate(Ws):
+        rows = slice(b * H, (b + 1) * H)
+        live = mode == K.ADV_OPEN or W[K.W_CONT]
+        out.append(advance_np(eq_next[rows], ob_next[rows], ob_cnt[rows],
+                              W, mode) if live else list(W))
+    if mode == K.ADV_SHIP:
+        flag = any(W[K.W_CONT] and W[K.W_EX] for W in out)
+    else:
+        flag = any(W[K.W_CONT] for W in out)
+    return out, int(flag)
+
+
+def lane_scalars_np(B, H, seed):
+    """B lanes' window scalars from a seed (``window_scalars_np``), about
+    a third of them frozen (W_CONT 0) and the others live."""
+    rng = np.random.RandomState(seed)
+    Ws = [window_scalars_np(seed * 31 + b, H) for b in range(B)]
+    for W in Ws:
+        W[K.W_CONT] = int(rng.rand() < 0.67)
+        W[K.W_EX] = int(rng.randint(0, 2))
+    return Ws
 
 
 def flag_rows(H, rows, seed):
